@@ -1,0 +1,95 @@
+"""Build and load the package's CUDA kernels (``csrc/*.cu``).
+
+One ``nvcc`` call compiles every source under ``csrc/`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, which is
+loaded with ``ctypes``. The build runs at first use, inside the checkout
+(``thor_slam_tpu_torch/_build/<source hash>/libthor_kernels.so``), and is
+reused while the sources and flags are unchanged. Nothing here runs at
+import time, so the package imports on hosts without ``nvcc`` or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+LIB_NAME = "libthor_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib: ctypes.CDLL | None = None
+build_log: str = ""
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (not on PATH, nor under CUDA_HOME or /usr/local/cuda)")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` unless a build of the same sources exists.
+
+    The compiler's resource report (``-Xptxas -v``: registers, shared
+    memory, spills per kernel) is kept in :data:`build_log`.
+    """
+    global build_log
+    out = library_path()
+    if out.is_file():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f".{LIB_NAME}.{os.getpid()}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), with C signatures set."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.thor_patches_gather.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.thor_patches_gather.restype = i
+        lib.thor_fast_nms.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
+        lib.thor_fast_nms.restype = i
+        _lib = lib
+    return _lib
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if status != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {status}")
