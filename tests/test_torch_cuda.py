@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
+from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda, sgm_cuda
 from thor_slam_tpu_torch.utils import cuda_lib
 
 torch.set_num_threads(2)
@@ -70,7 +70,7 @@ def _missing_library():
     raise RuntimeError("kernel library unavailable")
 
 
-@pytest.mark.parametrize("wrapper", ["patches", "fast"])
+@pytest.mark.parametrize("wrapper", ["patches", "fast", "sgm_scan", "sgm_4dir", "sgm_winner_lr"])
 def test_device_tensor_never_falls_back(monkeypatch, wrapper):
     """A non-CPU tensor gets the kernel or an exception, never the plain
     version: with the loader failing, the wrapper raises and the plain
@@ -78,15 +78,23 @@ def test_device_tensor_never_falls_back(monkeypatch, wrapper):
     monkeypatch.setattr(cuda_lib, "load", _missing_library)
     patches_cuda.reset_counts()
     fast_cuda.reset_counts()
+    sgm_cuda.reset_counts()
     imgs = torch.empty((2, 32, 48), device="meta")
     with pytest.raises(RuntimeError, match="unavailable"):
         if wrapper == "patches":
             cam = torch.empty(8, dtype=torch.int32, device="meta")
             centers = torch.empty((8, 2), dtype=torch.int32, device="meta")
             patches_cuda.extract_patches_flat(imgs, cam, centers, 9)
-        else:
+        elif wrapper == "fast":
             fast_cuda.fast_scores_batched(imgs, 0.05)
+        elif wrapper == "sgm_scan":
+            sgm_cuda.sgm_aggregate_dir(torch.empty((48, 16, 32), device="meta"), 6.0, 96.0, False)
+        elif wrapper == "sgm_4dir":
+            sgm_cuda.sgm_aggregate_4dir(torch.empty((16, 32, 48), device="meta"), 6.0, 96.0)
+        else:
+            sgm_cuda.winner_lr(torch.empty((16, 32, 48), device="meta"), 16)
     assert patches_cuda.counts["plain"] == 0 and fast_cuda.counts["plain"] == 0
+    assert all(c["plain"] == 0 for c in sgm_cuda.counts.values())
 
 
 def test_kernel_entry_rejects_cpu_tensors(monkeypatch):
@@ -98,6 +106,12 @@ def test_kernel_entry_rejects_cpu_tensors(monkeypatch):
         patches_cuda.extract_patches_flat_cuda(
             torch.rand(1, 16, 16), torch.zeros(2, dtype=torch.int32), torch.zeros((2, 2), dtype=torch.int32), 5
         )
+    with pytest.raises(ValueError):
+        sgm_cuda.sgm_aggregate_dir_cuda(torch.rand(8, 16, 4), 6.0, 96.0, False)
+    with pytest.raises(ValueError):
+        sgm_cuda.sgm_aggregate_4dir_cuda(torch.rand(16, 8, 12), 6.0, 96.0)
+    with pytest.raises(ValueError):
+        sgm_cuda.winner_lr_cuda(torch.rand(16, 8, 12), 16)
 
 
 def test_library_path_tracks_sources():
@@ -105,7 +119,7 @@ def test_library_path_tracks_sources():
     path = cuda_lib.library_path()
     assert path.name == cuda_lib.LIB_NAME
     assert path.parent.parent == cuda_lib.BUILD_DIR
-    assert {p.name for p in cuda_lib._sources()} == {"fast.cu", "patches.cu"}
+    assert {p.name for p in cuda_lib._sources()} == {"fast.cu", "patches.cu", "sgm.cu"}
     assert "thor_slam_tpu_torch/_build/" in (REPO / ".gitignore").read_text()
 
 
@@ -186,3 +200,104 @@ def test_engine_tracks_on_the_card_through_the_kernels(cuda_device):
     assert ate_rmse(np.asarray(est), np.asarray(gt)) < 0.05
     assert patches_cuda.counts["kernel"] >= 80 and patches_cuda.counts["plain"] == 0
     assert fast_cuda.counts["kernel"] >= 2 and fast_cuda.counts["plain"] == 0
+
+
+def _scan_inputs(shape, seed, with_add, layout):
+    """Integral costs in [0, 32] (and a pair volume in [0, 128]) as a
+    step-major (S, D, X) tensor on the card: contiguous, or the (W, D, H)
+    view of an (H, W, D) volume that ``sgm_aggregate_4dir`` passes
+    (``.float()`` and ``.cuda()`` keep a permuted tensor's strides)."""
+    gen = torch.Generator().manual_seed(seed)
+    s, d, x = shape
+
+    def volume(high):
+        if layout == "contiguous":
+            return torch.randint(0, high, (s, d, x), generator=gen).float().cuda()
+        return torch.randint(0, high, (x, s, d), generator=gen).permute(1, 2, 0).float().cuda()
+
+    return volume(33), volume(129) if with_add else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "hwd_view"])
+@pytest.mark.parametrize("with_add", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", [(200, 16, 200), (64, 40, 33), (640, 64, 400), (400, 64, 640), (50, 256, 9)])
+def test_scan_kernel_matches_plain(cuda_device, shape, reverse, with_add, layout):
+    """Bit-exact: integral costs keep every value an exact float32 integer."""
+    cost, add = _scan_inputs(shape, 7, with_add, layout)
+    got = sgm_cuda.sgm_aggregate_dir_cuda(cost, 6.0, 96.0, reverse, add)
+    want = sgm_cuda.sgm_aggregate_dir_plain(cost, 6.0, 96.0, reverse, add)
+    torch.cuda.synchronize()
+    assert got.stride() == cost.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dhw", [(16, 40, 64), (64, 400, 640)])
+def test_4dir_kernel_matches_plain(cuda_device, dhw):
+    cost = torch.randint(0, 33, dhw, generator=torch.Generator().manual_seed(8)).float().cuda()
+    got = sgm_cuda.sgm_aggregate_4dir_cuda(cost, 6.0, 96.0)
+    want = sgm_cuda.sgm_aggregate_4dir_plain(cost, 6.0, 96.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_non_integral_penalties(cuda_device):
+    """f32 non-integral inputs: the same float32 operations in the same
+    order as the plain version, so equal bit for bit as well."""
+    cost = (torch.rand((300, 48, 70), generator=torch.Generator().manual_seed(9)) * 24).cuda()
+    got = sgm_cuda.sgm_aggregate_dir_cuda(cost, 6.5, 97.25, True)
+    want = sgm_cuda.sgm_aggregate_dir_plain(cost, 6.5, 97.25, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dhw", [(16, 32, 256), (64, 400, 640), (64, 37, 200), (96, 24, 1280), (3, 5, 7)])
+def test_winner_kernel_matches_plain(cuda_device, dhw):
+    """Tie-heavy integer volume (values in [0, 400)): exact on all six outputs."""
+    agg = torch.randint(0, 400, dhw, generator=torch.Generator().manual_seed(10)).float().cuda()
+    got = sgm_cuda.winner_lr_cuda(agg, dhw[0])
+    want = sgm_cuda.winner_lr_plain(agg, dhw[0])
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_rgbd_product_on_the_card_through_the_kernels(cuda_device):
+    """The RGB-D product on the card runs the kernels, never the plain
+    versions, and agrees with the same product run on the CPU."""
+    from thor_slam_tpu.camera.rig import CameraRig
+    from thor_slam_tpu.camera.sources.synthetic import (
+        OrbitTrajectory,
+        SyntheticCameraSource,
+        SyntheticRigSpec,
+        SyntheticWorld,
+    )
+    from thor_slam_tpu_torch.pipeline import RGBDProcessor
+
+    spec = SyntheticRigSpec(
+        num_sources=1, stereo=True, width=160, height=120, baseline_m=0.3,
+        color_camera=True, color_resolution=(96, 64),
+    )
+    src = SyntheticCameraSource(
+        "cam0", SyntheticWorld(half_extents=(2.5, 2.5, 1.5)), OrbitTrajectory(radius=1.0), np.eye(4), spec
+    )
+    with CameraRig([src]) as rig:
+        sync = rig.get_synchronized_frames()
+        color = src.try_get_latest_rgb_frame()
+    kw = dict(color_intrinsics=src.get_rgb_intrinsics(), left_t_color=src.get_rgb_extrinsics().to_4x4_matrix())
+    args = (src.name, src.get_intrinsics(), src.get_extrinsics())
+    on_cpu = RGBDProcessor(*args, num_disparities=16, device="cpu", **kw).process(sync, color_frame=color)
+    sgm_cuda.reset_counts()
+    on_card = RGBDProcessor(*args, num_disparities=16, device=cuda_device, **kw).process(sync, color_frame=color)
+    assert sgm_cuda.counts["sgm_scan"] == {"kernel": 4, "plain": 0}
+    assert sgm_cuda.counts["sgm_winner_lr"] == {"kernel": 1, "plain": 0}
+    np.testing.assert_array_equal(on_card.rgb, on_cpu.rgb)
+    # Same formulas; the card's division by a scalar multiplies by its
+    # reciprocal, so a depth can move by one millimetre.
+    assert (on_card.depth_mm == on_cpu.depth_mm).mean() >= 0.99
+    assert (on_card.depth_mm > 0).mean() > 0.2

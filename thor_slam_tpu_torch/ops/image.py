@@ -1,8 +1,10 @@
-"""Image ops on (C, H, W) float32 stacks: blur, pyramid, patch gather.
+"""Image ops on (..., H, W) float32 stacks: blur, pyramid, patch gather,
+bilinear remap and resize.
 
-Port of the parts of :mod:`thor_slam_tpu.ops.image` the tracking tick
-uses. Blur and pyramid keep the reference's arithmetic order (unrolled tap
-sums with edge replication), so they agree with it to float rounding.
+Port of the parts of :mod:`thor_slam_tpu.ops.image` the tracking tick and
+the RGB-D product use. Every op keeps the reference's arithmetic order
+(unrolled tap sums with edge replication; the bilinear blend's
+floor/clip/weight order), so it agrees with it to float rounding.
 """
 
 from __future__ import annotations
@@ -79,3 +81,50 @@ def extract_patches(images: torch.Tensor, centers: torch.Tensor, size: int) -> t
     cam = torch.arange(c, device=images.device).repeat_interleave(n)
     flat = extract_patches_flat(images, cam, centers.reshape(c * n, 2), size)
     return flat.reshape(c, n, size, size)
+
+
+def remap_bilinear(images: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
+    """Sample (..., H, W) images at fractional (Ho, Wo) coordinates.
+
+    ``cv2.remap(INTER_LINEAR, BORDER_CONSTANT)`` semantics, as the
+    reference computes them: floor, clip of x0, x0+1, y0, y0+1 into the
+    image, ``top = v00*(1-fx) + v01*fx`` (``bot`` likewise), then
+    ``top*(1-fy) + bot*fy``; the whole sample is 0 where the coordinate
+    lies outside [0, W-1] x [0, H-1]. (``F.grid_sample`` blends border
+    samples with its zero padding and orders the arithmetic differently.)
+    """
+    h, w = images.shape[-2:]
+    x0 = torch.floor(map_x)
+    y0 = torch.floor(map_y)
+    fx = map_x - x0
+    fy = map_y - y0
+    x0i = x0.long()
+    y0i = y0.long()
+    valid = (map_x >= 0) & (map_x <= w - 1) & (map_y >= 0) & (map_y <= h - 1)
+    x0c = torch.clamp(x0i, 0, w - 1)
+    x1c = torch.clamp(x0i + 1, 0, w - 1)
+    y0c = torch.clamp(y0i, 0, h - 1)
+    y1c = torch.clamp(y0i + 1, 0, h - 1)
+
+    flat = images.reshape(*images.shape[:-2], h * w)
+
+    def take(yy, xx):
+        return flat[..., (yy * w + xx).reshape(-1)].reshape(*images.shape[:-2], *map_x.shape)
+
+    top = take(y0c, x0c) * (1.0 - fx) + take(y0c, x1c) * fx
+    bot = take(y1c, x0c) * (1.0 - fx) + take(y1c, x1c) * fx
+    out = top * (1.0 - fy) + bot * fy
+    return torch.where(valid, out, 0.0)
+
+
+def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of (..., H, W) images (align_corners=False, clamped
+    to the edge), as the reference builds it: a remap at pixel centres."""
+    h, w = images.shape[-2:]
+    dev = images.device
+    ys = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) * (h / out_h) - 0.5
+    xs = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) * (w / out_w) - 0.5
+    map_y, map_x = torch.meshgrid(ys, xs, indexing="ij")
+    map_y = torch.clamp(map_y, 0.0, h - 1.0)
+    map_x = torch.clamp(map_x, 0.0, w - 1.0)
+    return remap_bilinear(images, map_x, map_y)

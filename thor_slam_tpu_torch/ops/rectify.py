@@ -1,20 +1,78 @@
-"""Bouguet stereo rectification geometry from calibrated extrinsics (numpy).
+"""Bouguet stereo rectification: geometry, sampling maps, image rectify.
 
-The map-free part of :mod:`thor_slam_tpu.ops.rectify`, re-homed here
-because that module imports the JAX image ops: the tracker rectifies
-keypoint coordinates, never images, so it needs only the rectifying
-rotations, the shared rectified intrinsics and the baseline. Image
-remapping (the RGB-D product) is not ported yet.
+Port of :mod:`thor_slam_tpu.ops.rectify`. The geometry and the maps are
+host numpy at init time, copied from the reference because that module
+imports the JAX image ops. The tracker rectifies keypoint coordinates and
+needs only the rotations, the rectified intrinsics and the baseline, so
+it builds no maps (``compute_maps=False``, the default here); the RGB-D
+product remaps whole images with them (:func:`rectify_image`).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from thor_slam_tpu import geometry
 from thor_slam_tpu.camera.types import Extrinsics, Intrinsics
+from thor_slam_tpu_torch.ops.image import remap_bilinear
+
+_NO_MAP = (np.zeros((0, 0), np.float32), np.zeros((0, 0), np.float32))
+
+
+def _pad_coeffs(coeffs: np.ndarray) -> np.ndarray:
+    c = np.zeros(5)
+    coeffs = np.asarray(coeffs, dtype=np.float64).reshape(-1)
+    c[: min(5, coeffs.size)] = coeffs[:5]
+    return c
+
+
+def distort_normalized(pts: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
+    """Apply plumb-bob distortion (k1, k2, p1, p2, k3) to normalized points (..., 2)."""
+    k1, k2, p1, p2, k3 = _pad_coeffs(coeffs)
+    x, y = pts[..., 0], pts[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return np.stack([xd, yd], axis=-1)
+
+
+def init_undistort_rectify_map(
+    intrinsics: Intrinsics,
+    rect_rotation: np.ndarray,
+    new_matrix: np.ndarray,
+    out_width: int,
+    out_height: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(map_x, map_y) float32 (out_height, out_width): rectified pixel ->
+    source-image coordinates, ``cv2.initUndistortRectifyMap`` semantics.
+
+    Each output pixel's ray ``new_K^-1 p`` is rotated back by
+    ``rect_rotation^T``, perspective-divided, distorted and projected
+    through the original K. Rays behind the camera map to -1e6, which
+    every sampler treats as outside the image.
+    """
+    u, v = np.meshgrid(
+        np.arange(out_width, dtype=np.float64), np.arange(out_height, dtype=np.float64)
+    )
+    kn_inv = np.linalg.inv(new_matrix)
+    rays = np.stack([u, v, np.ones_like(u)], axis=-1) @ kn_inv.T  # (H, W, 3)
+    rays = rays @ rect_rotation  # == (R^T @ ray) for each ray
+    z = rays[..., 2]
+    safe_z = np.where(np.abs(z) < 1e-9, 1e-9, z)
+    xn = rays[..., 0] / safe_z
+    yn = rays[..., 1] / safe_z
+    dist = distort_normalized(np.stack([xn, yn], axis=-1), intrinsics.coeffs)
+    k = intrinsics.matrix
+    map_x = k[0, 0] * dist[..., 0] + k[0, 2]
+    map_y = k[1, 1] * dist[..., 1] + k[1, 2]
+    invalid = z <= 1e-9
+    map_x = np.where(invalid, -1e6, map_x)
+    map_y = np.where(invalid, -1e6, map_y)
+    return map_x.astype(np.float32), map_y.astype(np.float32)
 
 
 @dataclass
@@ -26,6 +84,8 @@ class StereoRectification:
         new_matrix: Shared rectified camera matrix K'.
         baseline_m: Rectified baseline (meters).
         width, height: Rectified image size.
+        map_left/map_right: (map_x, map_y) sampling maps per camera; empty
+            (0, 0) arrays when built with ``compute_maps=False``.
     """
 
     rect_rotation_left: np.ndarray
@@ -34,6 +94,8 @@ class StereoRectification:
     baseline_m: float
     width: int
     height: int
+    map_left: tuple[np.ndarray, np.ndarray] = field(default=_NO_MAP)
+    map_right: tuple[np.ndarray, np.ndarray] = field(default=_NO_MAP)
 
     @property
     def fx(self) -> float:
@@ -46,9 +108,11 @@ def stereo_rectify(
     left_t_right: np.ndarray,
     out_width: int | None = None,
     out_height: int | None = None,
+    compute_maps: bool = False,
 ) -> StereoRectification:
     """Bouguet rectification; ``left_t_right`` is the right camera's pose
-    in the left camera frame (p_left = left_T_right @ p_right)."""
+    in the left camera frame (p_left = left_T_right @ p_right).
+    ``compute_maps`` also builds both cameras' sampling maps."""
     out_width = out_width or left.width
     out_height = out_height or left.height
 
@@ -76,15 +140,24 @@ def stereo_rectify(
     e3 = np.cross(e1, e2)
     r_align = np.stack([e1, e2, e3])
 
+    rect_l = r_align @ half_l
+    rect_r = r_align @ half_r
     f = 0.25 * (left.fx + left.fy + right.fx + right.fy)
     k_new = np.array([[f, 0.0, out_width / 2.0], [0.0, f, out_height / 2.0], [0.0, 0.0, 1.0]])
+    maps = {}
+    if compute_maps:
+        maps = dict(
+            map_left=init_undistort_rectify_map(left, rect_l, k_new, out_width, out_height),
+            map_right=init_undistort_rectify_map(right, rect_r, k_new, out_width, out_height),
+        )
     return StereoRectification(
-        rect_rotation_left=r_align @ half_l,
-        rect_rotation_right=r_align @ half_r,
+        rect_rotation_left=rect_l,
+        rect_rotation_right=rect_r,
         new_matrix=k_new,
         baseline_m=float(np.linalg.norm(t_new)),
         width=out_width,
         height=out_height,
+        **maps,
     )
 
 
@@ -95,7 +168,14 @@ def rectification_from_extrinsics(
     right_ext: Extrinsics,
     out_width: int | None = None,
     out_height: int | None = None,
+    compute_maps: bool = False,
 ) -> StereoRectification:
     """Rectification from per-imager source_T_cam extrinsics."""
     left_t_right = geometry.se3_inverse(left_ext.to_4x4_matrix()) @ right_ext.to_4x4_matrix()
-    return stereo_rectify(left, right, left_t_right, out_width, out_height)
+    return stereo_rectify(left, right, left_t_right, out_width, out_height, compute_maps)
+
+
+def rectify_image(images: torch.Tensor, rect_map: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Remap (..., H, W) images through a (map_x, map_y) pair on their device."""
+    map_x, map_y = rect_map
+    return remap_bilinear(images, map_x, map_y)

@@ -80,11 +80,15 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         lib.thor_patches_gather.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.thor_patches_gather.restype = i
-        lib.thor_fast_nms.argtypes = [p, p, p, i, i, i, ctypes.c_float, p]
+        lib.thor_fast_nms.argtypes = [p, p, p, i, i, i, f, p]
         lib.thor_fast_nms.restype = i
+        lib.thor_sgm_scan.argtypes = [p, p, p, i, i, i, ll, ll, ll, i, f, f, p]
+        lib.thor_sgm_scan.restype = i
+        lib.thor_sgm_winner_lr.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
+        lib.thor_sgm_winner_lr.restype = i
         _lib = lib
     return _lib
 

@@ -24,12 +24,16 @@ def flagship_rig(
     width: int = 640,
     height: int = 400,
     max_keypoints: int = 512,
+    color_resolution: tuple[int, int] | None = None,
 ):
     """Build (params, setup, calibration, sources, world, trajectory).
 
     OAK-D-class 0.075 m baselines at 30 fps, orbiting r = 1.8 m at
     0.15 rad/s inside a 10 x 10 x 5 m textured room. ``setup`` holds numpy
     arrays (see :func:`thor_slam_tpu_torch.engine.convert.setup_to_torch`).
+    ``color_resolution`` (width, height) gives every source a color imager,
+    the RGB-D product's camera (1280x800 on the deployed rig,
+    ``config/slam_config.yaml``); its frames are rendered only on request.
     """
     spec = SyntheticRigSpec(
         num_sources=num_cams,
@@ -38,6 +42,8 @@ def flagship_rig(
         height=height,
         baseline_m=0.075,
         fps=30.0,
+        color_camera=color_resolution is not None,
+        color_resolution=color_resolution,
     )
     world = SyntheticWorld(half_extents=(5.0, 5.0, 2.5))
     traj = OrbitTrajectory(radius=1.8, angular_rate=0.15)
