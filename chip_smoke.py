@@ -21,7 +21,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    depth aligned to the 1280x800 color image), times it, checks its depth
    against the renderer's ground truth and that it launched both SGM
    kernels and never their plain versions; then splits one more frame
-   into synchronized phases.
+   into synchronized phases;
+5. drives ``TorchSlamEngine`` at its defaults (bundle adjustment, IMU
+   fusion with the accelerometer term, loop closure) on the same rig with
+   the IMU of source 0, over a 240-tick revisit orbit at 1 rad/s with black
+   frames on ticks 60-73 (session 1; keyframe spacing and loop candidates
+   changed for this orbit, see FULL_PARAMS), and checks tracking, loop closure,
+   BA, the gravity estimate and the map-lifted ATE; times one BA solve,
+   one loop lookup, one verification and one pose-graph solve; then saves
+   the map, and a fresh engine on a rig whose clocks start 1 s later loads
+   it, relocalizes (through the FAST and gather kernels) and tracks 10
+   ticks in its frame (session 2).
 
 Any failure exits non-zero without printing a result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -52,6 +62,28 @@ COLOR_RESOLUTION = (1280, 800)  # config/slam_config.yaml rgb_output_resolution
 MAX_MEDIAN_REL_ERR = 0.05
 MIN_VALID_SHARE = 0.3
 P1, P2 = 6.0, 96.0  # sgm_disparity's default penalties
+# Full-engine phase: a revisit orbit (tests/test_engine_loop_e2e.py scaled to
+# the flagship) whose blackout makes the odometry drift.
+FULL_TICKS = 240  # ~1.27 orbits at 1 rad/s and 30 fps
+FULL_RATE = 1.0  # rad/s around the orbit
+BLACKOUT = range(60, 74)
+# Changes from the defaults, for this orbit. Keyframe spacing as in the
+# loop end-to-end test (a keyframe every ~5 ticks instead of ~2.5 at
+# 1.8 m/s); and only keyframes older than ~0.8 orbit are loop candidates:
+# on the 4-camera rig every 90 degrees of the orbit brings another
+# camera's view back, and those cross-camera verifications from ~2.5 m
+# away returned poses tens of cm off (the first closed at 1.4 s, 55 cm
+# off, with no drift yet to correct). The IMU ring holds 512 samples: a
+# synthetic source whose clock starts 1 s late delivers that second's 400
+# samples in its first packet, and a 256-sample ring would drop the ones
+# the first ticks integrate (their windows came out empty, and after the
+# relocalization snap the 1 rad/s rotation outran the zero-motion
+# prediction).
+FULL_PARAMS = dict(keyframe_max_translation=0.3, keyframe_max_rotation=0.35)
+FULL_ENGINE_ARGS = dict(loop_exclude_recent=30, imu_buffer_capacity=512)
+RELOC_TICKS = 10
+RELOC_OFFSET_S = 1.0
+MAX_RELOC_ERR_M = 0.05
 
 
 def nvidia_smi_line() -> str:
@@ -381,6 +413,304 @@ def run_slice(dev) -> dict:
     return {name: c["kernel"] for name, c in counts.items()}
 
 
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sync_ms(dev, fn, reps: int = 5) -> float:
+    """Median host-clock ms of ``fn()``, the device synchronized around it,
+    after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        _sync(dev)
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        times.append(1e3 * (time.perf_counter() - t))
+    return statistics.median(times)
+
+
+def _counts() -> dict:
+    from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
+
+    return {"patch_gather": dict(patches_cuda.counts), "fast9_nms": dict(fast_cuda.counts)}
+
+
+def _reset_counts() -> None:
+    from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
+
+    patches_cuda.reset_counts()
+    fast_cuda.reset_counts()
+
+
+def render_session(num_cams, width, height, max_keypoints, ticks, clock_offsets=None, blackout=()):
+    """(calibration, trajectory, frame sets) of the revisit orbit with the
+    IMU of source 0; frames on ``blackout`` ticks are black."""
+    from thor_slam_tpu.camera.rig import CameraRig
+    from thor_slam_tpu_torch.utils.flagship import flagship_rig
+
+    _, _, calibration, sources, _, traj = flagship_rig(
+        num_cams, width, height, max_keypoints, angular_rate=FULL_RATE, clock_offsets=clock_offsets
+    )
+    frames = []
+    with CameraRig(sources, rig_extrinsics=calibration.rig_extrinsics, imu_source=sources[0].name) as rig:
+        for i in range(ticks):
+            fs = rig.get_synchronized_frames()
+            if i in blackout:  # sensor dropout
+                for source_frames in fs.frame_sets.values():
+                    for f in source_frames.frames:
+                        f.image = np.zeros_like(f.image)
+            frames.append(fs)
+    return calibration, traj, frames
+
+
+def _angle_deg(a: np.ndarray, b: np.ndarray) -> float:
+    cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    return float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+
+
+def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, ticks=FULL_TICKS) -> dict:
+    """Session 1 (revisit orbit, defaults) and session 2 (relocalization
+    against session 1's saved map). Returns what was measured."""
+    import tempfile
+
+    from thor_slam_tpu.slam.interface import SlamConfig, TrackingState
+    from thor_slam_tpu.utils.evaluation import ate_rmse
+    from thor_slam_tpu_torch.engine import ba, loop, posegraph
+    from thor_slam_tpu_torch.engine.imu import GRAVITY_W
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+
+    config = SlamConfig(num_cameras=2 * num_cams)  # loop closure on: the default
+    overrides = dict(max_keypoints=max_keypoints, **FULL_PARAMS)
+    t0 = time.perf_counter()
+    calibration, traj, frames = render_session(num_cams, width, height, max_keypoints, ticks, blackout=BLACKOUT)
+    render_s = time.perf_counter() - t0
+    print(
+        f"engine: rendered {ticks} frame sets ({num_cams} x 2 x {width}x{height}, IMU on source 0, "
+        f"black on ticks {BLACKOUT.start}-{BLACKOUT.stop - 1}) in {render_s:.1f} s"
+    )
+
+    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **FULL_ENGINE_ARGS)
+    engine.initialize(calibration, config)
+    closures = []
+    poll = engine._loop.poll
+
+    def logged_poll(*args, **kwargs):
+        res = poll(*args, **kwargs)
+        if res is not None:
+            t_corr, _, _, info = res
+            db = engine._loop.db
+            closures.append(dict(
+                info, query_ts=round(db[info["qi"]]["ts"], 3), cand_ts=round(db[info["ci"]]["ts"], 3),
+                corr_cm=round(float(np.linalg.norm(t_corr[:3, 3])) * 100, 3),
+            ))
+        return res
+
+    engine._loop.poll = logged_poll
+    _sync(dev)
+    _reset_counts()
+    gt0 = traj.pose(frames[0].timestamp)
+    tick_ms, states, est, world, gt = [], [], [], [], []
+    ba_applied = 0
+    skips: dict[str, int] = {}
+    for i, fs in enumerate(frames):
+        t = time.perf_counter()
+        pose = engine.process_frames(fs)
+        _sync(dev)
+        tick_ms.append(1e3 * (time.perf_counter() - t))
+        diag = engine.last_diagnostics
+        states.append(engine.get_tracking_state())
+        ba_applied += "ba_rms" in diag
+        for key in ("ba_skip", "loop_skip"):
+            if key in diag:
+                kind = f"{key}:{str(diag[key]).split()[0].split('=')[0]}"
+                skips[kind] = skips.get(kind, 0) + 1
+        if pose is not None and i not in BLACKOUT:
+            est.append(pose.position.copy())
+            world.append(engine.get_world_pose(pose).position)
+            gt.append((np.linalg.inv(gt0) @ traj.pose(fs.timestamp))[:3, 3])
+    engine.flush()
+    counts_1 = _counts()
+    diag = engine.last_diagnostics
+    est, world, gt = np.asarray(est), np.asarray(world), np.asarray(gt)
+    imu = engine._imu
+    g_true = np.linalg.inv(gt0)[:3, :3] @ GRAVITY_W
+    outside = [s for i, s in enumerate(states) if i > 3 and i not in BLACKOUT]
+    out = dict(
+        render_s=render_s,
+        tick_ms=tick_ms,
+        tracking_share=float(np.mean([s == TrackingState.TRACKING for s in outside])),
+        loops_closed=engine.loops_closed,
+        ba_applied=ba_applied,
+        skips=skips,
+        gravity_n=imu.gravity_n,
+        gravity_norm=float(np.linalg.norm(imu.gravity_w)) if imu.gravity_w is not None else float("nan"),
+        gravity_err_deg=_angle_deg(imu.gravity_w, g_true) if imu.gravity_w is not None else float("nan"),
+        accel_pred=bool(diag.get("accel_pred")),
+        imu_empty_windows=engine.imu_empty_windows,
+        # Both trajectories start at the first pose, the frame of the truth:
+        # the absolute error is what loop closure must lower. The aligned
+        # ATE (rigid Umeyama fit) is printed beside it.
+        ate_odom=ate_rmse(est, gt, align=False),
+        ate_map=ate_rmse(world, gt, align=False),
+        ate_odom_aligned=ate_rmse(est, gt),
+        ate_map_aligned=ate_rmse(world, gt),
+        end_err_odom=float(np.linalg.norm(est[-1] - gt[-1])),
+        end_err_map=float(np.linalg.norm(world[-1] - gt[-1])),
+        map_correction_m=float(np.linalg.norm(engine.map_t_odom[:3, 3])),
+        keyframes=len(engine.get_map().keyframe_poses),
+        counts_session1=counts_1,
+    )
+    print(
+        f"engine: {ticks} ticks, ms/tick median {statistics.median(tick_ms):.3f} p95 "
+        f"{float(np.percentile(tick_ms, 95)):.3f} max {max(tick_ms):.3f} (first {tick_ms[0]:.1f})"
+    )
+    print(
+        f"engine: TRACKING on {out['tracking_share']:.1%} of the ticks outside the blackout after tick 3; "
+        f"keyframes {out['keyframes']}, loops closed {out['loops_closed']}, BA applied on {ba_applied} "
+        f"keyframes; skips {json.dumps(skips)}"
+    )
+    print(f"engine: closures {json.dumps(closures)}")
+    print(
+        f"engine: gravity n={out['gravity_n']} |g|={out['gravity_norm']:.4f} m/s^2, "
+        f"{out['gravity_err_deg']:.3f} deg from the truth; accel_pred {out['accel_pred']}, empty IMU windows "
+        f"{out['imu_empty_windows']}, gyro bias {diag.get('gyro_bias_rad_s', float('nan')):.5f} rad/s"
+    )
+    print(
+        f"engine: ATE (unaligned) odometry {out['ate_odom'] * 100:.3f} cm, map-lifted {out['ate_map'] * 100:.3f} cm; "
+        f"aligned {out['ate_odom_aligned'] * 100:.3f} / {out['ate_map_aligned'] * 100:.3f} cm; "
+        f"end error odometry {out['end_err_odom'] * 100:.3f} cm, map-lifted {out['end_err_map'] * 100:.3f} cm; "
+        f"|map_t_odom| {out['map_correction_m'] * 100:.3f} cm"
+    )
+    print(f"engine: session 1 launch counts {json.dumps(counts_1)}")
+
+    # Synchronized times of one solve of each backend stage, on the final state.
+    built = engine._ba.build_problem({})
+    lb = engine._loop
+    q = lb.db[-1]
+    q_desc = torch.from_numpy(np.ascontiguousarray(q["desc"][0]).view(np.int32)).to(dev)
+    q_valid = torch.from_numpy(q["valid"][0]).to(dev)
+    mask = lb._eligible(lb.db[:-1])
+    cand = loop.find_candidate(q_desc, q_valid, lb._dev_desc, lb._dev_valid, mask)
+    slot, cam = divmod(int(cand.keyframe), num_cams)
+    cand_e = next(e for e in lb.db if e["slot"] == slot)
+    obs_norm = lb._obs_norm(q["obs_px"][0])
+    graph, _ = lb.build_graph(0, len(lb.db) - 1, np.linalg.inv(lb.db[0]["world_t_body"]) @ q["world_t_body"])
+    stage_ms = dict(
+        bundle_adjust=sync_ms(dev, lambda: ba.bundle_adjust(built[0], huber_delta=0.004)) if built else None,
+        find_candidate=sync_ms(dev, lambda: loop.find_candidate(q_desc, q_valid, lb._dev_desc, lb._dev_valid, mask)),
+        verify_candidate=sync_ms(dev, lambda: lb._verify(cand_e, cam, obs_norm, q_desc, q_valid, 0)),
+        posegraph=sync_ms(dev, lambda: posegraph.optimize(graph)),
+    )
+    out["stage_ms"] = stage_ms
+    print(
+        "engine: one solve, synchronized, median of 5 (ms): "
+        + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured" for k, v in stage_ms.items())
+        + f" (DB {len(lb.db)} keyframes x {num_cams} cameras, pose graph {graph.poses.shape[0]} nodes)"
+    )
+
+    # Session 2: relocalize against the saved map, clocks 1 s later.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/map"
+        if not engine.save_map(path):
+            raise AssertionError("save_map failed")
+        cal2, traj2, frames2 = render_session(
+            num_cams, width, height, max_keypoints, RELOC_TICKS, clock_offsets=(RELOC_OFFSET_S,) * num_cams
+        )
+        eng2 = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **FULL_ENGINE_ARGS)
+        eng2.initialize(cal2, config)
+        if not eng2.load_map(path):
+            raise AssertionError("load_map failed")
+    attempts = []
+    attempt = eng2._loop.relocalize_attempt
+
+    def counted_attempt(*args, **kwargs):
+        before = _counts()
+        _sync(dev)
+        t = time.perf_counter()
+        pose = attempt(*args, **kwargs)
+        _sync(dev)
+        after = _counts()
+        attempts.append(dict(
+            ok=pose is not None,
+            ms=1e3 * (time.perf_counter() - t),
+            delta={k: {w: after[k][w] - before[k][w] for w in after[k]} for k in after},
+        ))
+        return pose
+
+    eng2._loop.relocalize_attempt = counted_attempt
+    eng2.relocalize()
+    _reset_counts()
+    errs = []
+    for fs in frames2:
+        pose = eng2.process_frames(fs)
+        if pose is not None:
+            g_map = np.linalg.inv(gt0) @ traj2.pose(fs.timestamp)
+            errs.append(float(np.linalg.norm(pose.position - g_map[:3, 3])))
+    out.update(
+        reloc_attempts=attempts,
+        reloc_ok=not eng2._want_reloc,
+        reloc_state=eng2.get_tracking_state(),
+        reloc_errs=errs,
+        counts_session2=_counts(),
+    )
+    print(
+        f"engine: relocalization attempts {json.dumps(attempts)}; state after {RELOC_TICKS} ticks "
+        f"{out['reloc_state'].name}; position error in the saved map's frame median "
+        f"{np.median(errs) * 100 if errs else float('nan'):.3f} cm (max {max(errs, default=float('nan')) * 100:.3f})"
+    )
+    print(f"engine: session 2 launch counts {json.dumps(out['counts_session2'])}")
+    return out
+
+
+def check_full_engine(r: dict, kernels: bool = True) -> dict:
+    """The full-engine phase's bars; returns its kernel launches."""
+    from thor_slam_tpu.slam.interface import TrackingState
+
+    failures = []
+
+    def need(ok, what):
+        if not ok:
+            failures.append(what)
+
+    need(r["tracking_share"] >= 0.9, f"TRACKING on {r['tracking_share']:.1%} < 90 % of the ticks outside the blackout")
+    need(r["loops_closed"] >= 1, "no loop closed")
+    need(r["ba_applied"] >= 2, f"BA applied on {r['ba_applied']} < 2 keyframes")
+    need(r["gravity_n"] >= 30, f"gravity observed {r['gravity_n']} < 30 times")
+    need(8.0 < r["gravity_norm"] < 12.0, f"|g| = {r['gravity_norm']}")
+    need(r["gravity_err_deg"] < 15.0, f"gravity {r['gravity_err_deg']} deg from the truth")
+    need(r["accel_pred"], "accel prediction not engaged at the end")
+    need(r["imu_empty_windows"] == 0, f"{r['imu_empty_windows']} empty IMU windows")
+    need(r["ate_map"] <= r["ate_odom"], f"map-lifted ATE {r['ate_map']} worse than odometry {r['ate_odom']}")
+    # The JAX package's drift-recovery bar (tests/test_engine_loop_e2e.py).
+    need(
+        r["end_err_map"] < 0.7 * r["end_err_odom"],
+        f"map-lifted end error {r['end_err_map']} not under 0.7x the odometry's {r['end_err_odom']}",
+    )
+    need(r["reloc_ok"], "relocalization did not succeed")
+    need(r["reloc_state"] == TrackingState.TRACKING, f"state {r['reloc_state']} after relocalization")
+    need(bool(r["reloc_errs"]) and np.median(r["reloc_errs"]) < MAX_RELOC_ERR_M, f"relocalized errors {r['reloc_errs']}")
+    launches = {
+        k: r["counts_session1"][k]["kernel"] + r["counts_session2"][k]["kernel"] for k in r["counts_session1"]
+    }
+    if kernels:
+        ok_attempt = next((a for a in r["reloc_attempts"] if a["ok"]), None)
+        need(
+            ok_attempt is not None
+            and ok_attempt["delta"]["patch_gather"]["kernel"] >= 1
+            and ok_attempt["delta"]["fast9_nms"]["kernel"] >= 1
+            and all(d["plain"] == 0 for d in ok_attempt["delta"].values()),
+            f"the relocalization attempt did not run the FAST and gather kernels: {r['reloc_attempts']}",
+        )
+        for session in ("counts_session1", "counts_session2"):
+            need(all(c["kernel"] > 0 and c["plain"] == 0 for c in r[session].values()), f"{session}: {r[session]}")
+    if failures:
+        raise AssertionError("full-engine phase: " + "; ".join(failures))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -410,6 +740,12 @@ def main() -> int:
     winner = check_winner(sgm_cuda, dev)
     torch.cuda.empty_cache()
     launches = run_slice(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = check_full_engine(run_full_engine(dev))
+    print(f"engine: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(full)}")
+    for name, n in full.items():
+        launches[name] += n
 
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")

@@ -1,16 +1,14 @@
 """TorchSlamEngine end to end, against TpuSlamEngine on the same frames.
 
-Both engines run pure synchronous stereo VO (no BA, IMU, pipelining, light
-ticks or loop closure) over the same 20 rendered frame sets of a 2-camera
-rig at 160x120, 128 landmark slots per camera. Each must stay under the
+Both engines run pure synchronous stereo VO (BA, IMU and loop closure
+switched off, no pipelining or light ticks) over the same 20 rendered
+frame sets of a 2-camera rig at 160x120, 128 landmark slots per camera. Each must stay under the
 reference's 5 cm ATE bar (tests/test_engine_e2e.py), and the two ATEs may
 differ by at most 1 cm: RANSAC draws differ (a ``torch.Generator`` against
 the reference's JAX key chain), everything else is the same algorithm.
 """
 
 from __future__ import annotations
-
-import logging
 
 import numpy as np
 import pytest
@@ -69,7 +67,7 @@ def runs():
     )
     patches_cuda.reset_counts()
     fast_cuda.reset_counts()
-    port = TorchSlamEngine(params=PARAMS, device="cpu")
+    port = TorchSlamEngine(params=PARAMS, device="cpu", enable_ba=False, use_imu=False)
     out = dict(ref=_run(ref, frames, calibration, traj), port=_run(port, frames, calibration, traj))
     out["counts"] = (dict(patches_cuda.counts), dict(fast_cuda.counts))
     out["engine"] = port
@@ -129,12 +127,35 @@ def test_reset_and_shutdown(runs):
         engine.process_frames(runs["frames"][0])
 
 
-@pytest.mark.parametrize(
-    "kwargs", [dict(enable_ba=True), dict(use_imu=True), dict(pipelined=True), dict(light_ticks=True), dict(devices=2)]
-)
+@pytest.mark.parametrize("kwargs", [dict(pipelined=True), dict(light_ticks=True), dict(devices=2)])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         TorchSlamEngine(device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("option", ["enable_ba", "use_imu"])
+def test_backend_options_run(runs, option):
+    """BA and IMU fusion are ported: each runs alone on the VO frames."""
+    flags = dict(enable_ba=False, use_imu=False)
+    flags[option] = True
+    engine = TorchSlamEngine(params=PARAMS, device="cpu", **flags)
+    engine.initialize(runs["calibration"], SlamConfig(num_cameras=4, enable_loop_closure=False))
+    for fs in runs["frames"][:8]:
+        assert engine.process_frames(fs) is not None
+    diag = engine.last_diagnostics
+    if option == "enable_ba":
+        assert len(engine._ba) >= 3  # the window collects finalized ticks
+        assert "gyro_bias_rad_s" not in diag
+    else:
+        assert len(engine._ba) == 0
+        assert "gyro_bias_rad_s" in diag and "accel_pred" in diag
+
+
+def test_imu_noise_keys_checked():
+    with pytest.raises(ValueError, match="imu_noise"):
+        TorchSlamEngine(device="cpu", imu_noise=dict(gyro_density=1.0))
+    engine = TorchSlamEngine(device="cpu", imu_noise=dict(gyro_noise_density=2e-4))
+    assert engine._imu.gyro_nd == 2e-4
 
 
 def test_mono_source_raises():
@@ -145,12 +166,18 @@ def test_mono_source_raises():
         engine.initialize(CameraRig(sources, rig_extrinsics=rig_ext).calibration)
 
 
-def test_loop_closure_request_warns_and_runs(runs, caplog):
-    engine = TorchSlamEngine(params=PARAMS, device="cpu")
-    with caplog.at_level(logging.WARNING):
-        engine.initialize(runs["calibration"], SlamConfig(enable_loop_closure=True))
-    assert "loop closure" in caplog.text
-    assert engine.process_frames(runs["frames"][0]) is not None
+def test_loop_closure_runs(runs):
+    """Loop closure is on by default: keyframes enter the place DB."""
+    engine = TorchSlamEngine(params=PARAMS, device="cpu", enable_ba=False, use_imu=False)
+    engine.initialize(runs["calibration"], SlamConfig())
+    assert engine._config.enable_loop_closure
+    for fs in runs["frames"]:
+        assert engine.process_frames(fs) is not None
+    kfs = len(engine.get_map().keyframe_poses)
+    assert kfs >= 2 and len(engine._loop.db) == kfs
+    assert engine._loop._dev_desc is not None and bool(engine._loop._dev_valid.any())
+    engine.flush()
+    np.testing.assert_array_equal(engine.map_t_odom, np.eye(4))  # nothing to close yet
 
 
 def test_requires_device_choice(monkeypatch):
@@ -167,9 +194,9 @@ def test_requires_device_choice(monkeypatch):
 @pytest.mark.parametrize("dt", [1.0 / 30.0, 0.25, 1e-6])
 def test_held_covariance_growth_matches_reference(dt):
     from thor_slam_tpu.engine.backends.imu_fusion import ImuFusion
-    from thor_slam_tpu_torch.engine import imu_noise
+    from thor_slam_tpu_torch.engine.backends import ImuFusion as TorchImuFusion
 
-    np.testing.assert_allclose(imu_noise.window_covariance(dt), ImuFusion().window_covariance(dt), rtol=1e-12)
+    np.testing.assert_allclose(TorchImuFusion().window_covariance(dt), ImuFusion().window_covariance(dt), rtol=1e-12)
 
 
 def test_staging_orders_sources_and_zero_fills_missing(runs):

@@ -16,6 +16,11 @@ here it is a host ``if`` on the refresh flag, one 1-byte readback per
 tick. Every tensor keeps a fixed shape, so the hot path can later be
 captured in a CUDA graph.
 
+An external pose prediction (the IMU backend's) seeds KLT and PnP in place
+of the constant-velocity model. :func:`pack_ba_obs` and
+:func:`pack_kf_sig` ship the tick's bundle-adjustment observations and
+keyframe signature to the host backends in the reference's layouts.
+
 Mono sources, the all-mono bootstrap, light ticks, half-resolution
 staging, the median prefilter and oriented BRIEF are not ported yet.
 """
@@ -216,6 +221,7 @@ def track_step(
     uniforms: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
     cam_active: torch.Tensor | None = None,
+    pose_prediction: torch.Tensor | None = None,
 ) -> tuple[TrackerState, TrackOutput]:
     """One VO tick.
 
@@ -228,6 +234,9 @@ def track_step(
         generator: Source of the RANSAC draws when ``uniforms`` is None.
         cam_active: Optional (C,) bool of live cameras; dead cameras are
             masked out of the solve and mint no landmarks.
+        pose_prediction: Optional (4, 4) world_T_body prediction (IMU
+            preintegration); it seeds both KLT and the PnP solve. None
+            means the constant-velocity model.
 
     Returns:
         (new_state, output).
@@ -236,12 +245,16 @@ def track_step(
     if images.dtype == torch.uint8:
         images = images.float() * (1.0 / 255.0)
 
-    # KLT starts from the constant-velocity extrapolation; PnP from the
-    # last solved pose (extrapolating our own output compounds its error).
-    delta = state.world_t_body @ se3_inverse(state.prev_world_t_body)
-    extrapolated = delta @ state.world_t_body
-    klt_prediction = torch.where(state.untracked_streak > 0, state.world_t_body, extrapolated)
-    init_body_t_world = se3_inverse(state.world_t_body)
+    if pose_prediction is None:
+        # KLT starts from the constant-velocity extrapolation; PnP from the
+        # last solved pose (extrapolating our own output compounds its error).
+        delta = state.world_t_body @ se3_inverse(state.prev_world_t_body)
+        extrapolated = delta @ state.world_t_body
+        klt_prediction = torch.where(state.untracked_streak > 0, state.world_t_body, extrapolated)
+        init_body_t_world = se3_inverse(state.world_t_body)
+    else:  # an external prediction is independent of our own output
+        klt_prediction = pose_prediction.to(state.world_t_body)
+        init_body_t_world = se3_inverse(klt_prediction)
     klt_body_t_world = se3_inverse(klt_prediction)
 
     hot = run_hot_frontend(params, setup, state, images, klt_body_t_world)
@@ -593,4 +606,75 @@ def unpack_output(vec) -> dict:
         "rms_error": float(v[19]),
         "refreshed": bool(v[20] > 0.5),
         "covariance": v[21:57].reshape(6, 6).astype(np.float64),
+    }
+
+
+def _host(arr) -> np.ndarray:
+    return arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+
+
+def pack_ba_obs(out: TrackOutput, lm_pos_w: torch.Tensor) -> torch.Tensor:
+    """The tick's BA observations as one (C, N, 10) float32 tensor.
+
+    Channels: obs_norm (2) | robs_norm (2) | lm_id (bit-cast) | lm_valid |
+    robs_valid | lm_pos_w (3), where ``lm_pos_w`` is the post-tick bank.
+    The id channel holds the int32 bit pattern viewed as float32, not a
+    numeric cast: float32 is exact only to 2^24 and ids pass that in long
+    runs.
+    """
+    return torch.cat(
+        [
+            out.obs_norm.float(),
+            out.robs_norm.float(),
+            out.lm_id.to(torch.int32).view(torch.float32)[..., None],
+            out.lm_valid.float()[..., None],
+            out.robs_valid.float()[..., None],
+            lm_pos_w.float(),
+        ],
+        -1,
+    )
+
+
+def unpack_ba_obs(arr) -> dict:
+    """Host-side parse of a fetched :func:`pack_ba_obs` array."""
+    a = _host(arr)
+    return {
+        "obs": a[..., 0:2].astype(np.float32),
+        "robs": a[..., 2:4].astype(np.float32),
+        "ids": np.ascontiguousarray(a[..., 4], np.float32).view(np.int32),
+        "valid": a[..., 5] > 0.5,
+        "robs_valid": a[..., 6] > 0.5,
+        "pos": a[..., 7:10].astype(np.float32),
+    }
+
+
+def pack_kf_sig(state: TrackerState) -> torch.Tensor:
+    """The all-camera keyframe signature as one (C, N, 14) float32 tensor.
+
+    Channels: descriptor words (8, bit-cast) | obs_px (2) | lm_valid (1) |
+    lm_pos_w (3): what the place database stores per keyframe.
+    """
+    return torch.cat(
+        [
+            state.lm_desc.to(torch.int32).view(torch.float32),
+            state.lm_obs_px.float(),
+            (state.lm_valid & ~state.lm_pending).float()[..., None],
+            state.lm_pos_w.float(),
+        ],
+        -1,
+    )
+
+
+def unpack_kf_sig(arr) -> dict:
+    """Host-side parse of a :func:`pack_kf_sig` array: (C, N, 14), or a
+    single-camera (N, 14) signature parsed with a C=1 axis. Descriptor
+    words come back as uint32, the reference's type."""
+    a = _host(arr)
+    if a.ndim == 2:
+        a = a[None]
+    return {
+        "desc": np.ascontiguousarray(a[..., 0:8], np.float32).view(np.uint32),
+        "obs_px": a[..., 8:10].astype(np.float32),
+        "valid": a[..., 10] > 0.5,
+        "pos": a[..., 11:14].astype(np.float64),
     }

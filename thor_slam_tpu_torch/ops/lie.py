@@ -17,6 +17,13 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
+def _sq_norm(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 1, 1) squared norms. Kept at rank >= 2: under
+    ``torch.func.vmap`` a 0-dim operand of ``torch.where`` promotes float32
+    to float64."""
+    return (v * v).sum(-1)[..., None, None]
+
+
 def hat(v: torch.Tensor) -> torch.Tensor:
     """so(3) hat: (..., 3) -> (..., 3, 3) skew-symmetric."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -38,18 +45,18 @@ def vee(m: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(phi: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (..., 3) rotation vectors -> (..., 3, 3) rotations."""
-    theta2 = (phi * phi).sum(-1)
+    theta2 = _sq_norm(phi)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     k = hat(phi)
     small = theta2 > _EPS
     a = torch.where(small, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
     b = torch.where(small, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0)
-    return _eye(3, phi) + a[..., None, None] * k + b[..., None, None] * (k @ k)
+    return _eye(3, phi) + a * k + b * (k @ k)
 
 
 def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     """Left Jacobian of SO(3), batched."""
-    theta2 = (phi * phi).sum(-1)
+    theta2 = _sq_norm(phi)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     k = hat(phi)
     small = theta2 > _EPS
@@ -57,33 +64,38 @@ def so3_left_jacobian(phi: torch.Tensor) -> torch.Tensor:
     c = torch.where(
         small, (theta - torch.sin(theta)) / (theta2 * theta), 1.0 / 6.0 - theta2 / 120.0
     )
-    return _eye(3, phi) + b[..., None, None] * k + c[..., None, None] * (k @ k)
+    return _eye(3, phi) + b * k + c * (k @ k)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """(..., 6) tangents [rho, phi] -> (..., 4, 4) transforms."""
     rho, phi = xi[..., :3], xi[..., 3:]
     r = so3_exp(phi)
-    t = (so3_left_jacobian(phi) @ rho[..., None])[..., 0]
-    m = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
-    m[..., :3, :3] = r
-    m[..., :3, 3] = t
-    m[..., 3, 3] = 1.0
-    return m
+    t = so3_left_jacobian(phi) @ rho[..., None]
+    return from_rt(r, t)
+
+
+def from_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(..., 4, 4) transforms from (..., 3, 3) rotations and (..., 3, 1)
+    translations. No in-place writes (``torch.func`` transforms trace it)
+    and no host-to-device copy (the bottom row is filled on the device)."""
+    bottom = torch.cat([torch.zeros_like(t).transpose(-1, -2), torch.ones_like(t[..., :1, :])], -1)
+    return torch.cat([torch.cat([r, t], -1), bottom], -2)
 
 
 def matrix_to_quat(r: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotations -> (..., 4) unit quaternions (xyzw), w >= 0."""
-    r00, r01, r02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
-    r10, r11, r12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
-    r20, r21, r22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+    # Entries as (..., 1) slices, not 0-dim tensors (see _sq_norm).
+    r00, r01, r02 = r[..., 0, 0:1], r[..., 0, 1:2], r[..., 0, 2:3]
+    r10, r11, r12 = r[..., 1, 0:1], r[..., 1, 1:2], r[..., 1, 2:3]
+    r20, r21, r22 = r[..., 2, 0:1], r[..., 2, 1:2], r[..., 2, 2:3]
     t = r00 + r11 + r22
-    qx = torch.stack([1.0 + r00 - r11 - r22, r01 + r10, r02 + r20, r21 - r12], -1)
-    qy = torch.stack([r01 + r10, 1.0 - r00 + r11 - r22, r12 + r21, r02 - r20], -1)
-    qz = torch.stack([r02 + r20, r12 + r21, 1.0 - r00 - r11 + r22, r10 - r01], -1)
-    qw = torch.stack([r21 - r12, r02 - r20, r10 - r01, 1.0 + t], -1)
+    qx = torch.cat([1.0 + r00 - r11 - r22, r01 + r10, r02 + r20, r21 - r12], -1)
+    qy = torch.cat([r01 + r10, 1.0 - r00 + r11 - r22, r12 + r21, r02 - r20], -1)
+    qz = torch.cat([r02 + r20, r12 + r21, 1.0 - r00 - r11 + r22, r10 - r01], -1)
+    qw = torch.cat([r21 - r12, r02 - r20, r10 - r01, 1.0 + t], -1)
     candidates = torch.stack([qx, qy, qz, qw], -2)  # (..., 4, 4)
-    mags = torch.stack(
+    mags = torch.cat(
         [1.0 + r00 - r11 - r22, 1.0 - r00 + r11 - r22, 1.0 - r00 - r11 + r22, 1.0 + t], -1
     )
     best = torch.argmax(mags, -1)
@@ -95,19 +107,19 @@ def matrix_to_quat(r: torch.Tensor) -> torch.Tensor:
 def so3_log(r: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotations -> (..., 3) rotation vectors, via the quaternion."""
     q = matrix_to_quat(r)
-    qv, qw = q[..., :3], q[..., 3]
-    n = torch.linalg.norm(qv, dim=-1)
+    qv, qw = q[..., :3], q[..., 3:]
+    n = torch.linalg.norm(qv, dim=-1, keepdim=True)
     angle = 2.0 * torch.atan2(n, qw)
     scale = torch.where(
         n > _EPS, angle / torch.clamp(n, min=_EPS), 2.0 / torch.clamp(qw, min=_EPS)
     )
-    return qv * scale[..., None]
+    return qv * scale
 
 
 def se3_log(m: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) transforms -> (..., 6) tangents [rho, phi]."""
     phi = so3_log(m[..., :3, :3])
-    theta2 = (phi * phi).sum(-1)
+    theta2 = _sq_norm(phi)
     theta = torch.sqrt(theta2 + _EPS * _EPS)
     k = hat(phi)
     half = 0.5 * theta
@@ -116,7 +128,7 @@ def se3_log(m: torch.Tensor) -> torch.Tensor:
         (1.0 - 0.5 * theta * torch.cos(half) / torch.clamp(torch.sin(half), min=_EPS)) / theta2,
         1.0 / 12.0 + theta2 / 720.0,
     )
-    j_inv = _eye(3, m) - 0.5 * k + cot_term[..., None, None] * (k @ k)
+    j_inv = _eye(3, m) - 0.5 * k + cot_term * (k @ k)
     rho = (j_inv @ m[..., :3, 3:4])[..., 0]
     return torch.cat([rho, phi], -1)
 
@@ -124,11 +136,7 @@ def se3_log(m: torch.Tensor) -> torch.Tensor:
 def se3_inverse(m: torch.Tensor) -> torch.Tensor:
     """Analytic rigid inverse of (..., 4, 4) transforms."""
     r_t = m[..., :3, :3].transpose(-1, -2)
-    out = torch.zeros_like(m)
-    out[..., :3, :3] = r_t
-    out[..., :3, 3] = -(r_t @ m[..., :3, 3:4])[..., 0]
-    out[..., 3, 3] = 1.0
-    return out
+    return from_rt(r_t, -(r_t @ m[..., :3, 3:4]))
 
 
 def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 
 Port of :mod:`thor_slam_tpu.ops.rectify`. The geometry and the maps are
 host numpy at init time, copied from the reference because that module
-imports the JAX image ops. The tracker rectifies keypoint coordinates and
+imports the JAX image ops; :func:`undistort_normalized` serves loop
+verification and relocalization. The tracker rectifies keypoint coordinates and
 needs only the rotations, the rectified intrinsics and the baseline, so
 it builds no maps (``compute_maps=False``, the default here); the RGB-D
 product remaps whole images with them (:func:`rectify_image`).
@@ -38,6 +39,22 @@ def distort_normalized(pts: np.ndarray, coeffs: np.ndarray) -> np.ndarray:
     xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
     yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
     return np.stack([xd, yd], axis=-1)
+
+
+def undistort_normalized(pts: np.ndarray, coeffs: np.ndarray, iters: int = 8) -> np.ndarray:
+    """Invert plumb-bob distortion of normalized points (..., 2) by
+    fixed-point iteration (OpenCV-style)."""
+    k1, k2, p1, p2, k3 = _pad_coeffs(coeffs)
+    xd, yd = pts[..., 0], pts[..., 1]
+    x, y = xd.copy(), yd.copy()
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x = (xd - dx) / radial
+        y = (yd - dy) / radial
+    return np.stack([x, y], axis=-1)
 
 
 def init_undistort_rectify_map(

@@ -25,11 +25,15 @@ def flagship_rig(
     height: int = 400,
     max_keypoints: int = 512,
     color_resolution: tuple[int, int] | None = None,
+    angular_rate: float = 0.15,
+    clock_offsets: tuple[float, ...] | None = None,
 ):
     """Build (params, setup, calibration, sources, world, trajectory).
 
     OAK-D-class 0.075 m baselines at 30 fps, orbiting r = 1.8 m at
-    0.15 rad/s inside a 10 x 10 x 5 m textured room. ``setup`` holds numpy
+    ``angular_rate`` rad/s inside a 10 x 10 x 5 m textured room; source 0
+    carries the IMU. ``clock_offsets`` (seconds, one per source) start the
+    sources' clocks later on the same trajectory. ``setup`` holds numpy
     arrays (see :func:`thor_slam_tpu_torch.engine.convert.setup_to_torch`).
     ``color_resolution`` (width, height) gives every source a color imager,
     the RGB-D product's camera (1280x800 on the deployed rig,
@@ -46,8 +50,8 @@ def flagship_rig(
         color_resolution=color_resolution,
     )
     world = SyntheticWorld(half_extents=(5.0, 5.0, 2.5))
-    traj = OrbitTrajectory(radius=1.8, angular_rate=0.15)
-    sources, rig_ext, _, _ = make_synthetic_rig(spec, world=world, trajectory=traj)
+    traj = OrbitTrajectory(radius=1.8, angular_rate=angular_rate)
+    sources, rig_ext, _, _ = make_synthetic_rig(spec, world=world, trajectory=traj, clock_offsets=clock_offsets)
     calibration = RigCalibration(
         intrinsics={s.name: s.get_intrinsics() for s in sources},
         extrinsics={s.name: s.get_extrinsics() for s in sources},
