@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. It
+Run from the root of a checkout: ``python3 chip_smoke.py``. With
+``--kernels-only`` it runs phases 0-2 alone and prints their numbers, no
+result line: a kernel PR copies the script into a ``git archive`` of its
+parent and runs parent, change, change, parent in one call, so both
+versions' kernels are checked and timed by the same code. It
 
 0. requires a CUDA device, prints the card's name and power limit and pins
    full-f32 precision;
 1. builds the kernels from ``thor_slam_tpu_torch/csrc`` and prints the
    build time and the compiler's per-kernel resource report;
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (patch gather exactly, FAST-9 within 1e-6, the SGM
-   scan and the winner/LR pass exactly, also at the 720p geometry) and
-   times both with CUDA events (median of 20 launches after warm-up);
+   main path's shapes (patch gather exactly, FAST-9 within 1e-6; the SGM
+   scan, every direction and the 4-direction path, and the winner/LR pass
+   exactly at D in {48, 64, 96, 256} on ragged H, W, H = 1, W < D, the
+   flagship and the 720p geometry, for integral and non-integral
+   penalties) and measures each kernel at the main path's shapes: its
+   device time (20 calls captured in a CUDA graph, replayed between two
+   events), its call time (CUDA events around one call, the host's side
+   included), the plain version's, the one PyTorch call that computes the
+   same function where there is one (the gather: ``images[cam, ys, xs]``),
+   and its bound (bytes over 3.35 TB/s);
 3. drives ``TorchSlamEngine`` over 40 ticks of the synthetic flagship rig
    (4 stereo cameras at 640x400, 512 keypoints per camera, a 1280x800
    color imager on each), times ``process_frames``, and checks tracking,
@@ -35,7 +46,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 Any failure exits non-zero without printing a result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
-JSON record. Imports no JAX.
+JSON record, with launches on the main path and per period (5 ticks: one
+RGB-D frame), and each kernel's loss per period, launches x (device ms -
+bound ms), by which the kernels are ranked. Imports nothing of JAX or of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -62,6 +76,14 @@ COLOR_RESOLUTION = (1280, 800)  # config/slam_config.yaml rgb_output_resolution
 MAX_MEDIAN_REL_ERR = 0.05
 MIN_VALID_SHARE = 0.3
 P1, P2 = 6.0, 96.0  # sgm_disparity's default penalties
+# Kernel checks: (D, H, W) at the disparity counts the port takes, with H
+# and W multiples of no tile of either SGM kernel, H = 1 and W < D; then
+# the flagship (D = 64, 400x640) and the 720p geometry (D = 96).
+SGM_SHAPES = [(48, 37, 203), (64, 1, 50), (64, 45, 37), (96, 23, 61), (256, 9, 100), (256, 3, 300),
+              (64, 400, 640), (96, 720, 1280)]
+SGM_PENALTIES = [(P1, P2), (6.5, 97.25)]  # integral, non-integral
+GRAPH_CALLS = 20  # calls captured in the graph a device time replays
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Full-engine phase: a revisit orbit (tests/test_engine_loop_e2e.py scaled to
 # the flagship) whose blackout makes the odometry drift.
 FULL_TICKS = 240  # ~1.27 orbits at 1 rad/s and 30 fps
@@ -94,8 +116,11 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` launches, by CUDA events."""
+def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of one call of ``fn()`` between two CUDA events
+    on an idle stream, over ``reps`` calls after warm-up. The window holds
+    the host's side of the call (validation, allocation, the launch), so it
+    is the call's time, not the kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -109,6 +134,45 @@ def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = GRAPH_CALLS, replays: int = 5) -> float:
+    """The device's own milliseconds for one call of ``fn()``: ``calls``
+    calls captured in one CUDA graph, replayed between two CUDA events
+    (median over ``replays``). The replay launches the captured kernels
+    back to back with no host work between them, so the window holds the
+    kernels' time and the graph's small per-node gaps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graph capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float) -> float:
+    """Least time to move ``nbytes`` through device memory at the H100
+    SXM's 3.35 TB/s (every kernel here is bound by bytes: it does a few
+    operations per byte, far under the card's peak rates)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def check_patch_gather(patches_cuda, dev) -> dict:
@@ -127,16 +191,31 @@ def check_patch_gather(patches_cuda, dev) -> dict:
         torch.cuda.synchronize()
         exact = torch.equal(got, want)
         err = float((got - want).abs().max())
-        ms = time_cuda(lambda: patches_cuda.extract_patches_flat_cuda(images, cam, centers, size))
-        plain_ms = time_cuda(lambda: patches_cuda.extract_patches_flat_plain(images, cam, centers, size))
-        print(
-            f"patch_gather C,H,W={c},{h},{w} S={size} M={m}: exact={exact} max_abs_err={err} "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-        )
         if not exact:
             raise AssertionError(f"patch gather differs from its plain version at {(c, h, w)}, S={size}")
+        kernel = lambda: patches_cuda.extract_patches_flat_cuda(images, cam, centers, size)  # noqa: E731
+        dev_ms = device_ms(kernel)
+        ms = call_ms(kernel)
+        plain_ms = call_ms(lambda: patches_cuda.extract_patches_flat_plain(images, cam, centers, size))
+        # The library yardstick: one advanced-index call, indices built outside the window.
+        r = size // 2
+        offs = torch.arange(-r, r + 1, device=dev)
+        xs = (torch.clamp(centers[:, 0], r, w - r - 1).long()[:, None, None] + offs[None, None, :])
+        ys = (torch.clamp(centers[:, 1], r, h - r - 1).long()[:, None, None] + offs[None, :, None])
+        cam_b = cam.long()[:, None, None]
+        if not torch.equal(images[cam_b, ys, xs], got):
+            raise AssertionError("the advanced-index yardstick differs from the gather")
+        library_ms = device_ms(lambda: images[cam_b, ys, xs])
+        # The patch pixels read once (windows rarely overlap), the indices, the patches written.
+        nbytes = 2 * m * size * size * 4 + m * 3 * 4
+        print(
+            f"patch_gather C,H,W={c},{h},{w} S={size} M={m}: exact={exact} max_abs_err={err} device "
+            f"{dev_ms:.4f} ms  call {ms:.4f} ms  plain {plain_ms:.4f} ms  images[cam, ys, xs] {library_ms:.4f} ms  "
+            f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.2f} MB)"
+        )
         if (c, h, w, size) == (4, 400, 640, 19):
-            main_path = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            main_path = dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=library_ms)
     return main_path
 
 
@@ -150,88 +229,122 @@ def check_fast(fast_cuda, dev) -> dict:
         torch.cuda.synchronize()
         err = max(float((raw_k - raw_p).abs().max()), float((nms_k - nms_p).abs().max()))
         corners = int((nms_k > 0).sum())
-        ms = time_cuda(lambda: fast_cuda.fast_scores_cuda(images, 0.05))
-        plain_ms = time_cuda(lambda: fast_cuda.fast_scores_plain(images, 0.05))
-        print(
-            f"fast9_nms C,H,W={','.join(map(str, shape))}: max_abs_err={err} nms_peaks={corners} "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-        )
         if not err <= 1e-6:
             raise AssertionError(f"FAST kernel differs from its plain version by {err} at {shape}")
+        kernel = lambda: fast_cuda.fast_scores_cuda(images, 0.05)  # noqa: E731
+        dev_ms = device_ms(kernel)
+        ms = call_ms(kernel)
+        plain_ms = call_ms(lambda: fast_cuda.fast_scores_plain(images, 0.05))
+        nbytes = 3 * images.numel() * 4  # images in, raw and NMS maps out
+        print(
+            f"fast9_nms C,H,W={','.join(map(str, shape))}: max_abs_err={err} nms_peaks={corners} device "
+            f"{dev_ms:.4f} ms  call {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms(nbytes):.4f} ms"
+        )
         if shape == (4, 400, 640):
-            main_path = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            main_path = dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=None)
     return main_path
+
+
+def _sgm_volume(dhw, gen, integral: bool, high: int = 33):
+    if integral:
+        return torch.randint(0, high, dhw, generator=gen).float().cuda()
+    return (torch.rand(dhw, generator=gen) * (high - 1)).cuda()
 
 
 def check_sgm_scan(sgm_cuda, dev) -> dict:
-    """Scan kernel vs plain, bit-exact, on random integral costs in [0, 32]."""
+    """Scan kernel vs plain, bit-exact, at every listed shape, with integral
+    and non-integral penalties: each direction and ``add_to`` case of the
+    single-scan entry on the views of a (D, H, W) volume, and the
+    4-direction path (4 and 2 paths). Then the main path's launches and
+    timing."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
-    d, h, w = RGBD_DISPARITIES, 400, 640
-    # The main path's layout: step-major views of one (H, W, D) volume.
-    cost_hwd = torch.randint(0, 33, (h, w, d), generator=gen).float().to(dev)
-    add_hwd = torch.randint(0, 129, (h, w, d), generator=gen).float().to(dev)
-    views = {"horizontal": (1, 2, 0), "vertical": (0, 2, 1)}  # (W, D, H) and (H, D, W)
-    main_path = None
-    for name, perm in views.items():
-        cost, add = cost_hwd.permute(*perm), add_hwd.permute(*perm)
-        for reverse in (False, True):
-            for add_to in (None, add):
-                got = sgm_cuda.sgm_aggregate_dir_cuda(cost, P1, P2, reverse, add_to)
-                want = sgm_cuda.sgm_aggregate_dir_plain(cost, P1, P2, reverse, add_to)
+    views = {"horizontal": lambda v: v.permute(2, 0, 1), "vertical": lambda v: v.permute(1, 0, 2)}
+    cases, err = 0, 0.0
+    for dhw in SGM_SHAPES:
+        for p1, p2 in SGM_PENALTIES:
+            integral = p1 == int(p1)
+            cost = _sgm_volume(dhw, gen, integral)
+            add = _sgm_volume(dhw, gen, True, 129)
+            for name, view in views.items():
+                for reverse in (False, True):
+                    for add_to in (None, view(add)):
+                        got = sgm_cuda.sgm_aggregate_dir_cuda(view(cost), p1, p2, reverse, add_to)
+                        want = sgm_cuda.sgm_aggregate_dir_plain(view(cost), p1, p2, reverse, add_to)
+                        torch.cuda.synchronize()
+                        err = max(err, float((got - want).abs().max()))
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"SGM scan differs from its plain version at D,H,W={dhw} P={p1},{p2} {name} "
+                                f"reverse={reverse} add={add_to is not None}: {float((got - want).abs().max())}"
+                            )
+                        cases += 1
+            for num_paths in (4, 2):
+                got = sgm_cuda.sgm_aggregate_4dir_cuda(cost, p1, p2, num_paths)
+                want = sgm_cuda.sgm_aggregate_4dir_plain(cost, p1, p2, num_paths)
                 torch.cuda.synchronize()
-                exact = torch.equal(got, want)
-                err = float((got - want).abs().max())
-                ms = time_cuda(lambda: sgm_cuda.sgm_aggregate_dir_cuda(cost, P1, P2, reverse, add_to))
-                plain_ms = time_cuda(lambda: sgm_cuda.sgm_aggregate_dir_plain(cost, P1, P2, reverse, add_to), reps=5)
-                print(
-                    f"sgm_scan {name} S,D,X={','.join(map(str, cost.shape))} reverse={reverse} "
-                    f"add={add_to is not None}: exact={exact} max_abs_err={err} "
-                    f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms (plain over 5 reps)"
-                )
-                if not exact:
-                    raise AssertionError(f"SGM scan differs from its plain version ({name}, reverse={reverse})")
-                if name == "horizontal" and not reverse and add_to is None:
-                    main_path = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    for (d, h, w), plain_reps in (((64, 400, 640), 5), ((96, 720, 1280), 3)):
-        cost = torch.randint(0, 33, (d, h, w), generator=gen).float().to(dev)
-        got = sgm_cuda.sgm_aggregate_4dir_cuda(cost, P1, P2)
-        want = sgm_cuda.sgm_aggregate_4dir_plain(cost, P1, P2)
-        torch.cuda.synchronize()
-        exact = torch.equal(got, want)
-        ms = time_cuda(lambda: sgm_cuda.sgm_aggregate_4dir_cuda(cost, P1, P2))
-        plain_ms = time_cuda(lambda: sgm_cuda.sgm_aggregate_4dir_plain(cost, P1, P2), reps=plain_reps, warmup=1)
-        print(
-            f"sgm_aggregate_4dir D,H,W={d},{h},{w}: exact={exact} max_abs_err={float((got - want).abs().max())} "
-            f"kernel path {ms:.4f} ms  plain {plain_ms:.4f} ms (plain over {plain_reps} reps)"
-        )
-        if not exact:
-            raise AssertionError(f"4-direction aggregation differs from its plain version at {(d, h, w)}")
-        del cost, got, want
-    return main_path
+                err = max(err, float((got - want).abs().max()))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{num_paths}-path aggregation differs at D,H,W={dhw} P={p1},{p2}")
+                cases += 1
+            del cost, add, got, want
+    print(f"sgm_scan: {cases} cases exact (max_abs_err {err}) at D,H,W in {SGM_SHAPES}, P1,P2 in {SGM_PENALTIES}")
+
+    # The main path: D = 64 at 400x640, integral costs.
+    d, h, w = RGBD_DISPARITIES, 400, 640
+    cost = _sgm_volume((d, h, w), gen, True)
+    path = lambda: sgm_cuda.sgm_aggregate_4dir_cuda(cost, P1, P2)  # noqa: E731
+    sgm_cuda.reset_counts()
+    path()
+    launches = sgm_cuda.counts["sgm_scan"]["kernel"]
+    dev_ms = device_ms(path)
+    ms = call_ms(path)
+    plain_ms = call_ms(lambda: sgm_cuda.sgm_aggregate_4dir_plain(cost, P1, P2), reps=3, warmup=1)
+    nbytes = 2 * cost.numel() * 4  # V in, V out
+    # The dependent chain alone: one line of 4096 steps (one warp).
+    line = _sgm_volume((4096, d, 1), gen, True)
+    chain_ms = device_ms(lambda: sgm_cuda.sgm_aggregate_dir_cuda(line, P1, P2, False), calls=4)
+    ns_per_step = chain_ms * 1e6 / 4096
+    chain_bound_ms = (w + w + h) * ns_per_step / 1e6  # the longest line of each launch: 640, 640, 400 steps
+    print(
+        f"sgm_aggregate_4dir D,H,W={d},{h},{w}: device {dev_ms:.4f} ms ({launches} scan launches)  call {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms (over 3 reps)  "
+        f"bound {bound_ms(nbytes):.4f} ms (V in + V out, {nbytes / 1e6:.1f} MB); dependent chain "
+        f"{ns_per_step:.2f} ns a step (one 4096-step line), {chain_bound_ms:.4f} ms over 640 + 640 + 400 steps"
+    )
+    return dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                bound_by="bytes", library_ms=None, launches_per_call=launches, chain_ns_per_step=ns_per_step)
 
 
 def check_winner(sgm_cuda, dev) -> dict:
-    """Winner/LR kernel vs plain, exact, on a tie-heavy integer volume."""
+    """Winner/LR kernel vs plain, exact, on tie-heavy integer volumes and on
+    non-integral ones, at every listed shape; then the main path's timing."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
-    main_path = None
-    for d, h, w in ((64, 400, 640), (64, 400, 600), (96, 720, 1280)):
-        agg = torch.randint(0, 400, (d, h, w), generator=gen).float().to(dev)
-        got = sgm_cuda.winner_lr_cuda(agg, d)
-        want = sgm_cuda.winner_lr_plain(agg, d)
-        torch.cuda.synchronize()
-        exact = all(torch.equal(g, x) for g, x in zip(got, want))
-        err = max(float((g.float() - x.float()).abs().max()) for g, x in zip(got, want))
-        ms = time_cuda(lambda: sgm_cuda.winner_lr_cuda(agg, d))
-        plain_ms = time_cuda(lambda: sgm_cuda.winner_lr_plain(agg, d))
-        print(
-            f"sgm_winner_lr D,H,W={d},{h},{w}: exact={exact} max_abs_err={err} "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-        )
-        if not exact:
-            raise AssertionError(f"winner/LR kernel differs from its plain version at {(d, h, w)}")
-        if (d, h, w) == (64, 400, 640):
-            main_path = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    return main_path
+    cases, err = 0, 0.0
+    for dhw in SGM_SHAPES + [(64, 400, 600)]:
+        for integral in (True, False):
+            agg = _sgm_volume(dhw, gen, integral, 400)
+            got = sgm_cuda.winner_lr_cuda(agg, dhw[0])
+            want = sgm_cuda.winner_lr_plain(agg, dhw[0])
+            torch.cuda.synchronize()
+            err = max([err] + [float((g.double() - x.double()).abs().max()) for g, x in zip(got, want)])
+            if not all(torch.equal(g, x) for g, x in zip(got, want)):
+                raise AssertionError(f"winner/LR kernel differs from its plain version at {dhw}, integral={integral}")
+            cases += 1
+    print(f"sgm_winner_lr: {cases} cases exact (max_abs_err {err}) at D,H,W in {SGM_SHAPES + [(64, 400, 600)]}")
+    d, h, w = RGBD_DISPARITIES, 400, 640
+    agg = _sgm_volume((d, h, w), gen, True, 400)
+    kernel = lambda: sgm_cuda.winner_lr_cuda(agg, d)  # noqa: E731
+    dev_ms = device_ms(kernel)
+    ms = call_ms(kernel)
+    plain_ms = call_ms(lambda: sgm_cuda.winner_lr_plain(agg, d))
+    nbytes = agg.numel() * 4 + 6 * h * w * 4  # V in, six planes out
+    print(
+        f"sgm_winner_lr D,H,W={d},{h},{w}: device {dev_ms:.4f} ms  call {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.1f} MB)"
+    )
+    return dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                bound_by="bytes", library_ms=None)
 
 
 def depth_accuracy(frame, gt: np.ndarray) -> tuple[float, float]:
@@ -270,7 +383,7 @@ def rgbd_phases(processor, sync, color) -> dict:
     cost = timed("census + cost", lambda: stereo.census_cost_volume(
         *stereo.census_transform(torch.stack([left, right])), RGBD_DISPARITIES
     ))
-    agg = timed("aggregate (4 scans)", lambda: sgm_cuda.sgm_aggregate_4dir(cost, P1, P2))
+    agg = timed("aggregate", lambda: sgm_cuda.sgm_aggregate_4dir(cost, P1, P2))
     winners = timed("winner/LR", lambda: sgm_cuda.winner_lr(agg, RGBD_DISPARITIES))
     depth = timed("tail + depth", lambda: stereo.disparity_to_depth(
         *stereo.disparity_from_winners(*winners, RGBD_DISPARITIES), sr.fx, sr.baseline_m
@@ -281,10 +394,13 @@ def rgbd_phases(processor, sync, color) -> dict:
     return ms
 
 
-def run_slice(dev) -> dict:
-    from thor_slam_tpu.camera.rig import CameraRig
-    from thor_slam_tpu.slam.interface import SlamConfig, TrackingState
-    from thor_slam_tpu.utils.evaluation import ate_rmse
+def run_slice(dev, scan_launches: int) -> dict:
+    """The tracking slice with an RGB-D frame every RGBD_EVERY ticks;
+    ``scan_launches`` is what one 4-direction aggregation launched in the
+    kernel phase, which every RGB-D frame must match."""
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
     from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
     from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda, sgm_cuda
     from thor_slam_tpu_torch.pipeline import RGBDProcessor
@@ -402,15 +518,17 @@ def run_slice(dev) -> dict:
     rgbd_frames = TICKS // RGBD_EVERY
     if len(rgbd_ms) != rgbd_frames:
         raise AssertionError(f"{len(rgbd_ms)} RGB-D frames, expected {rgbd_frames}")
-    if counts["sgm_scan"]["kernel"] < 4 * rgbd_frames:
-        raise AssertionError(f"SGM scan launched {counts['sgm_scan']['kernel']} < 4 x {rgbd_frames}")
+    if scan_launches > 3 or counts["sgm_scan"]["kernel"] != scan_launches * rgbd_frames:
+        raise AssertionError(
+            f"SGM scan launched {counts['sgm_scan']['kernel']} for {rgbd_frames} frames, not {scan_launches} (<= 3) each"
+        )
     if counts["sgm_winner_lr"]["kernel"] < rgbd_frames:
         raise AssertionError(f"winner/LR launched {counts['sgm_winner_lr']['kernel']} < {rgbd_frames}")
     if any(c["plain"] for c in counts.values()):
         raise AssertionError(f"plain versions ran on the main path: {counts}")
     if not max(rels) < MAX_MEDIAN_REL_ERR or not min(shares) > MIN_VALID_SHARE:
         raise AssertionError(f"RGB-D depth off the bar: valid shares {shares}, median rel errors {rels}")
-    return {name: c["kernel"] for name, c in counts.items()}
+    return {name: c["kernel"] for name, c in counts.items()}, len(rgbd_ms)
 
 
 def _sync(dev) -> None:
@@ -448,7 +566,7 @@ def _reset_counts() -> None:
 def render_session(num_cams, width, height, max_keypoints, ticks, clock_offsets=None, blackout=()):
     """(calibration, trajectory, frame sets) of the revisit orbit with the
     IMU of source 0; frames on ``blackout`` ticks are black."""
-    from thor_slam_tpu.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.rig import CameraRig
     from thor_slam_tpu_torch.utils.flagship import flagship_rig
 
     _, _, calibration, sources, _, traj = flagship_rig(
@@ -476,8 +594,8 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
     against session 1's saved map). Returns what was measured."""
     import tempfile
 
-    from thor_slam_tpu.slam.interface import SlamConfig, TrackingState
-    from thor_slam_tpu.utils.evaluation import ate_rmse
+    from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
     from thor_slam_tpu_torch.engine import ba, loop, posegraph
     from thor_slam_tpu_torch.engine.imu import GRAVITY_W
     from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
@@ -667,7 +785,7 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
 
 def check_full_engine(r: dict, kernels: bool = True) -> dict:
     """The full-engine phase's bars; returns its kernel launches."""
-    from thor_slam_tpu.slam.interface import TrackingState
+    from thor_slam_tpu_torch.slam.interface import TrackingState
 
     failures = []
 
@@ -738,8 +856,14 @@ def main() -> int:
     fast = check_fast(fast_cuda, dev)
     scan = check_sgm_scan(sgm_cuda, dev)
     winner = check_winner(sgm_cuda, dev)
+    if "--kernels-only" in sys.argv[1:]:
+        # Phases 0-2 alone (see the module docstring): no result line.
+        print(json.dumps({"kernel_times": dict(patch_gather=patch, fast9_nms=fast, sgm_scan=scan,
+                                                sgm_winner_lr=winner)}))
+        return 0
     torch.cuda.empty_cache()
-    launches = run_slice(dev)
+    launches, periods = run_slice(dev, scan["launches_per_call"])
+    per_period = {name: n / periods for name, n in launches.items()}  # a period: RGBD_EVERY ticks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     full = check_full_engine(run_full_engine(dev))
@@ -747,44 +871,28 @@ def main() -> int:
     for name, n in full.items():
         launches[name] += n
 
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    record = {
-        "kernels": [
-            {
-                "name": "patch_gather",
-                "route": "cuda",
-                "source": "thor_slam_tpu_torch/csrc/patches.cu",
-                "replaces": "thor_slam_tpu/ops/patches_pallas.py:68",
-                "launches": launches["patch_gather"],
-                **patch,
-            },
-            {
-                "name": "fast9_nms",
-                "route": "cuda",
-                "source": "thor_slam_tpu_torch/csrc/fast.cu",
-                "replaces": "thor_slam_tpu/ops/fast_pallas.py:98",
-                "launches": launches["fast9_nms"],
-                **fast,
-            },
-            {
-                "name": "sgm_scan",
-                "route": "cuda",
-                "source": "thor_slam_tpu_torch/csrc/sgm.cu",
-                "replaces": "thor_slam_tpu/ops/sgm_pallas.py:61",
-                "launches": launches["sgm_scan"],
-                **scan,
-            },
-            {
-                "name": "sgm_winner_lr",
-                "route": "cuda",
-                "source": "thor_slam_tpu_torch/csrc/sgm.cu",
-                "replaces": "thor_slam_tpu/ops/sgm_pallas.py:249",
-                "launches": launches["sgm_winner_lr"],
-                **winner,
-            },
-        ]
-    }
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "thor_slam_tpu")]
+    if foreign:
+        raise AssertionError(f"imported {foreign[:5]}")
+    rows = [
+        ("patch_gather", "patches.cu", "thor_slam_tpu/ops/patches_pallas.py:68", patch),
+        ("fast9_nms", "fast.cu", "thor_slam_tpu/ops/fast_pallas.py:98", fast),
+        ("sgm_scan", "sgm.cu", "thor_slam_tpu/ops/sgm_pallas.py:61", scan),
+        ("sgm_winner_lr", "sgm.cu", "thor_slam_tpu/ops/sgm_pallas.py:249", winner),
+    ]
+    record = {"kernels": []}
+    for name, src, replaces, m in rows:
+        calls = per_period[name] / m.get("launches_per_call", 1)
+        record["kernels"].append(dict(
+            name=name, route="cuda", source=f"thor_slam_tpu_torch/csrc/{src}", replaces=replaces,
+            launches=launches[name], launches_per_period=per_period[name],
+            loss_ms_per_period=calls * (m["ms"] - m["bound_ms"]), **m,
+        ))
+    ranked = sorted(record["kernels"], key=lambda k: -k["loss_ms_per_period"])
+    print(
+        f"ranking by launches x (device ms - bound ms) per period of {RGBD_EVERY} ticks: "
+        + ", ".join(f"{k['name']} {k['loss_ms_per_period']:.4f} ms" for k in ranked)
+    )
     print(json.dumps(record))
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

@@ -166,15 +166,15 @@ def test_fast_kernel_matches_plain(cuda_device, shape):
 
 @pytest.mark.cuda
 def test_engine_tracks_on_the_card_through_the_kernels(cuda_device):
-    from thor_slam_tpu.camera.rig import CameraRig
-    from thor_slam_tpu.camera.sources.synthetic import (
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.sources.synthetic import (
         OrbitTrajectory,
         SyntheticRigSpec,
         SyntheticWorld,
         make_synthetic_rig,
     )
-    from thor_slam_tpu.slam.interface import SlamConfig, TrackingState
-    from thor_slam_tpu.utils.evaluation import ate_rmse
+    from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
     from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
 
     spec = SyntheticRigSpec(num_sources=2, stereo=True, width=160, height=120, fps=30.0, baseline_m=0.12)
@@ -204,9 +204,10 @@ def test_engine_tracks_on_the_card_through_the_kernels(cuda_device):
 
 def _scan_inputs(shape, seed, with_add, layout):
     """Integral costs in [0, 32] (and a pair volume in [0, 128]) as a
-    step-major (S, D, X) tensor on the card: contiguous, or the (W, D, H)
-    view of an (H, W, D) volume that ``sgm_aggregate_4dir`` passes
-    (``.float()`` and ``.cuda()`` keep a permuted tensor's strides)."""
+    step-major (S, D, X) tensor on the card: contiguous, or the (S, D, X)
+    view of an (X, S, D) tensor, disparities at unit stride, since the
+    kernel takes any strides (``.float()`` and ``.cuda()`` keep a permuted
+    tensor's strides)."""
     gen = torch.Generator().manual_seed(seed)
     s, d, x = shape
 
@@ -218,8 +219,22 @@ def _scan_inputs(shape, seed, with_add, layout):
     return volume(33), volume(129) if with_add else None
 
 
+# (D, H, W) at the listed disparity counts, with H and W multiples of no
+# tile (the scan's 4-16 steps and 4-8 lines, the winner's 128 columns),
+# H = 1, and W < D; then the flagship geometry.
+SGM_SHAPES = [(48, 37, 203), (64, 1, 50), (64, 45, 37), (96, 23, 61), (256, 9, 100), (256, 3, 300), (64, 400, 640)]
+PENALTIES = [(6.0, 96.0), (6.5, 97.25)]
+
+
+def _sgm_volume(dhw, seed, integral):
+    gen = torch.Generator().manual_seed(seed)
+    if integral:
+        return torch.randint(0, 33, dhw, generator=gen).float().cuda()
+    return (torch.rand(dhw, generator=gen) * 24).cuda()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("layout", ["contiguous", "hwd_view"])
+@pytest.mark.parametrize("layout", ["contiguous", "permuted"])
 @pytest.mark.parametrize("with_add", [False, True])
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("shape", [(200, 16, 200), (64, 40, 33), (640, 64, 400), (400, 64, 640), (50, 256, 9)])
@@ -234,12 +249,20 @@ def test_scan_kernel_matches_plain(cuda_device, shape, reverse, with_add, layout
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dhw", [(16, 40, 64), (64, 400, 640)])
-def test_4dir_kernel_matches_plain(cuda_device, dhw):
-    cost = torch.randint(0, 33, dhw, generator=torch.Generator().manual_seed(8)).float().cuda()
-    got = sgm_cuda.sgm_aggregate_4dir_cuda(cost, 6.0, 96.0)
-    want = sgm_cuda.sgm_aggregate_4dir_plain(cost, 6.0, 96.0)
+@pytest.mark.parametrize("num_paths", [4, 2])
+@pytest.mark.parametrize("penalties", PENALTIES)
+@pytest.mark.parametrize("dhw", [(16, 40, 64)] + SGM_SHAPES)
+def test_4dir_kernel_matches_plain(cuda_device, dhw, penalties, num_paths):
+    """Bit-exact for integral and non-integral penalties, in three launches
+    (four paths) or two (the horizontal pair)."""
+    p1, p2 = penalties
+    cost = _sgm_volume(dhw, 8, p1 == int(p1))
+    sgm_cuda.reset_counts()
+    got = sgm_cuda.sgm_aggregate_4dir_cuda(cost, p1, p2, num_paths)
+    assert sgm_cuda.counts["sgm_scan"]["kernel"] == (3 if num_paths == 4 else 2)
+    want = sgm_cuda.sgm_aggregate_4dir_plain(cost, p1, p2, num_paths)
     torch.cuda.synchronize()
+    assert got.shape == dhw and got.is_contiguous()
     assert torch.equal(got, want)
 
 
@@ -255,10 +278,18 @@ def test_scan_kernel_non_integral_penalties(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dhw", [(16, 32, 256), (64, 400, 640), (64, 37, 200), (96, 24, 1280), (3, 5, 7)])
-def test_winner_kernel_matches_plain(cuda_device, dhw):
-    """Tie-heavy integer volume (values in [0, 400)): exact on all six outputs."""
-    agg = torch.randint(0, 400, dhw, generator=torch.Generator().manual_seed(10)).float().cuda()
+@pytest.mark.parametrize("integral", [True, False])
+@pytest.mark.parametrize(
+    "dhw", [(16, 32, 256), (64, 37, 200), (96, 24, 1280), (3, 5, 7)] + SGM_SHAPES + [(64, 400, 600), (96, 720, 1280)]
+)
+def test_winner_kernel_matches_plain(cuda_device, dhw, integral):
+    """All six outputs exact, on a tie-heavy integer volume (values in
+    [0, 400)) and on a non-integral one."""
+    gen = torch.Generator().manual_seed(10)
+    if integral:
+        agg = torch.randint(0, 400, dhw, generator=gen).float().cuda()
+    else:
+        agg = (torch.rand(dhw, generator=gen) * 400).cuda()
     got = sgm_cuda.winner_lr_cuda(agg, dhw[0])
     want = sgm_cuda.winner_lr_plain(agg, dhw[0])
     torch.cuda.synchronize()
@@ -267,11 +298,30 @@ def test_winner_kernel_matches_plain(cuda_device, dhw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("penalties", PENALTIES)
+@pytest.mark.parametrize("dhw", SGM_SHAPES)
+def test_scan_kernel_every_direction_on_the_dhw_volume(cuda_device, dhw, penalties):
+    """Each direction and ``add_to`` case of the single-scan entry on the
+    step-major views of a (D, H, W) volume, bit-exact against the plain
+    scan, for integral and non-integral penalties."""
+    p1, p2 = penalties
+    cost = _sgm_volume(dhw, 11, p1 == int(p1))
+    add = _sgm_volume(dhw, 12, True) * 4
+    for view in (lambda v: v.permute(2, 0, 1), lambda v: v.permute(1, 0, 2)):
+        for reverse in (False, True):
+            for add_to in (None, view(add)):
+                got = sgm_cuda.sgm_aggregate_dir_cuda(view(cost), p1, p2, reverse, add_to)
+                want = sgm_cuda.sgm_aggregate_dir_plain(view(cost), p1, p2, reverse, add_to)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (dhw, reverse, add_to is not None)
+
+
+@pytest.mark.cuda
 def test_rgbd_product_on_the_card_through_the_kernels(cuda_device):
     """The RGB-D product on the card runs the kernels, never the plain
     versions, and agrees with the same product run on the CPU."""
-    from thor_slam_tpu.camera.rig import CameraRig
-    from thor_slam_tpu.camera.sources.synthetic import (
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.sources.synthetic import (
         OrbitTrajectory,
         SyntheticCameraSource,
         SyntheticRigSpec,
@@ -294,7 +344,7 @@ def test_rgbd_product_on_the_card_through_the_kernels(cuda_device):
     on_cpu = RGBDProcessor(*args, num_disparities=16, device="cpu", **kw).process(sync, color_frame=color)
     sgm_cuda.reset_counts()
     on_card = RGBDProcessor(*args, num_disparities=16, device=cuda_device, **kw).process(sync, color_frame=color)
-    assert sgm_cuda.counts["sgm_scan"] == {"kernel": 4, "plain": 0}
+    assert sgm_cuda.counts["sgm_scan"] == {"kernel": 3, "plain": 0}
     assert sgm_cuda.counts["sgm_winner_lr"] == {"kernel": 1, "plain": 0}
     np.testing.assert_array_equal(on_card.rgb, on_cpu.rgb)
     # Same formulas; the card's division by a scalar multiplies by its

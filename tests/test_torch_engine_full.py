@@ -28,10 +28,11 @@ from thor_slam_tpu.camera.sources.synthetic import (
     make_synthetic_rig,
 )
 from thor_slam_tpu.engine.tpu_engine import TpuSlamEngine
-from thor_slam_tpu.slam.interface import SlamConfig, TrackingState
+from thor_slam_tpu.slam.interface import SlamConfig
 from thor_slam_tpu.utils.evaluation import ate_rmse
 from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
 from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
+from thor_slam_tpu_torch.slam.interface import TrackingState as PortState
 
 torch.set_num_threads(2)
 
@@ -56,7 +57,7 @@ def _run(engine, frames, calibration):
     est, gt, states, solved = [], [], [], 0
     for fs in frames:
         pose = engine.process_frames(fs)
-        states.append(engine.get_tracking_state())
+        states.append(engine.get_tracking_state().name)  # each package has its own enum
         solved += _ba_solved(engine.last_diagnostics)
         if pose is not None:
             est.append(pose.position.copy())
@@ -101,9 +102,9 @@ def test_ate_under_bar_and_close_to_reference(runs):
     assert port["ate"] < 0.05 and ref["ate"] < 0.05
     assert abs(port["ate"] - ref["ate"]) <= 0.01
     for r in (ref, port):
-        first = r["states"].index(TrackingState.TRACKING)
+        first = r["states"].index("TRACKING")
         assert first <= 3
-        assert np.mean([s == TrackingState.TRACKING for s in r["states"][first:]]) >= 0.9
+        assert np.mean([s == "TRACKING" for s in r["states"][first:]]) >= 0.9
 
 
 def test_ba_solved_in_both(runs):
@@ -178,7 +179,7 @@ def test_relocalizes_against_the_reference_map(runs):
     with CameraRig(sources, rig_extrinsics=rig_ext, imu_source=sources[0].name) as rig:
         engine = _loaded(TorchSlamEngine, runs["ref_map"], rig.calibration, device="cpu")
         assert engine.relocalize()
-        assert engine.get_tracking_state() == TrackingState.RELOCALIZING
+        assert engine.get_tracking_state() == PortState.RELOCALIZING
         errs = []
         for _ in range(10):
             sync = rig.get_synchronized_frames()
@@ -186,7 +187,7 @@ def test_relocalizes_against_the_reference_map(runs):
             if pose is not None:
                 errs.append(np.linalg.norm(pose.position - (np.linalg.inv(gt0) @ TRAJ.pose(sync.timestamp))[:3, 3]))
     assert not engine._want_reloc  # relocalization succeeded
-    assert engine.get_tracking_state() == TrackingState.TRACKING
+    assert engine.get_tracking_state() == PortState.TRACKING
     assert np.median(errs) < 0.05, errs
     assert len(engine.get_landmark_cloud()) > len(engine.get_map().points)
 

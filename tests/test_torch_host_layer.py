@@ -1,0 +1,206 @@
+"""The port's own host layer against the JAX package's framework-free modules.
+
+``thor_slam_tpu_torch`` keeps copies of ``geometry``, ``camera.types``,
+``camera.rig``, ``camera.sources.synthetic``, ``slam.interface`` and
+``utils.evaluation``, so that it imports nothing of the JAX package. These
+tests hold each copy to the module it copies on the same seeded inputs
+(all exact: the copies run the same numpy code), and guard that no module
+of the port, nor ``chip_smoke.py``, loads JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from thor_slam_tpu import geometry as jgeom
+from thor_slam_tpu.camera.rig import CameraRig as JaxCameraRig
+from thor_slam_tpu.camera.sources import synthetic as jsyn
+from thor_slam_tpu.slam import interface as jiface
+from thor_slam_tpu.utils import evaluation as jeval
+from thor_slam_tpu_torch import geometry as tgeom
+from thor_slam_tpu_torch.camera.rig import CameraRig as PortCameraRig
+from thor_slam_tpu_torch.camera.sources import synthetic as tsyn
+from thor_slam_tpu_torch.slam import interface as tiface
+from thor_slam_tpu_torch.utils import evaluation as teval
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _quat(rng):
+    q = rng.normal(size=4)
+    return q / np.linalg.norm(q)
+
+
+def _rot(rng):
+    return jgeom.quat_to_matrix(_quat(rng))
+
+
+# function name -> maker of its seeded arguments
+GEOMETRY_CASES = {
+    "quat_identity": lambda rng: (),
+    "quat_normalize": lambda rng: (rng.normal(size=4),),
+    "quat_multiply": lambda rng: (_quat(rng), _quat(rng)),
+    "quat_conjugate": lambda rng: (_quat(rng),),
+    "quat_to_matrix": lambda rng: (rng.normal(size=4),),
+    "matrix_to_quat": lambda rng: (_rot(rng),),
+    "quat_rotate": lambda rng: (_quat(rng), rng.normal(size=(7, 3))),
+    "axis_angle_to_quat": lambda rng: (rng.normal(size=3), float(rng.uniform(-np.pi, np.pi))),
+    "euler_xyz_extrinsic_to_matrix": lambda rng: tuple(float(a) for a in rng.uniform(-np.pi, np.pi, 3)),
+    "se3_matrix": lambda rng: (_rot(rng), rng.normal(size=3)),
+    "se3_inverse": lambda rng: (jgeom.se3_matrix(_rot(rng), rng.normal(size=3)),),
+    "se3_from_pose": lambda rng: (rng.normal(size=3), _quat(rng)),
+    "pose_from_se3": lambda rng: (jgeom.se3_matrix(_rot(rng), rng.normal(size=3)),),
+    "rotate_cov6": lambda rng: (_rot(rng), np.cov(rng.normal(size=(6, 20)))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GEOMETRY_CASES))
+def test_geometry_matches_reference(name):
+    rng = np.random.default_rng(sorted(GEOMETRY_CASES).index(name))
+    for _ in range(5):
+        args = GEOMETRY_CASES[name](rng)
+        want = getattr(jgeom, name)(*args)
+        got = getattr(tgeom, name)(*args)
+        for g, w in zip(np.atleast_1d(got) if not isinstance(got, tuple) else got,
+                        np.atleast_1d(want) if not isinstance(want, tuple) else want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["FLU_FROM_RDF", "RDF_FROM_FLU", "RDF_FROM_DRB"])
+def test_frame_constants_match_reference(name):
+    np.testing.assert_array_equal(getattr(tgeom, name), getattr(jgeom, name))
+
+
+def _spec(pkg, **kw):
+    base = dict(num_sources=2, stereo=True, width=64, height=48, fps=30.0, baseline_m=0.1,
+                color_camera=True, color_resolution=(48, 32))
+    base.update(kw)
+    return pkg.SyntheticRigSpec(**base)
+
+
+@pytest.mark.parametrize("clock_offsets", [None, (0.0, 0.004)])
+def test_synthetic_rig_renders_identically(clock_offsets):
+    """Same spec and seed: byte-identical frames, IMU packets, trajectory
+    poses and IMU samples in both packages."""
+    rigs = [
+        pkg.make_synthetic_rig(_spec(pkg), world=pkg.SyntheticWorld(half_extents=(3.0, 3.0, 2.0)),
+                               trajectory=pkg.OrbitTrajectory(radius=1.2, angular_rate=0.4),
+                               clock_offsets=clock_offsets)
+        for pkg in (jsyn, tsyn)
+    ]
+    (j_src, j_ext, _, j_traj), (t_src, t_ext, _, t_traj) = rigs
+    assert sorted(j_ext) == sorted(t_ext)
+    for name in j_ext:
+        np.testing.assert_array_equal(j_ext[name].to_4x4_matrix(), t_ext[name].to_4x4_matrix())
+    for t in np.linspace(0.0, 2.0, 7):
+        np.testing.assert_array_equal(j_traj.pose(t), t_traj.pose(t))
+        for a, b in zip(j_traj.imu_sample(t), t_traj.imu_sample(t)):
+            np.testing.assert_array_equal(a, b)
+    for js, ts in zip(j_src, t_src):
+        assert js.name == ts.name
+        js.start()
+        ts.start()
+        for _ in range(3):
+            jf, tf = js.get_latest_frames(), ts.get_latest_frames()
+            assert len(jf) == len(tf)
+            for a, b in zip(jf, tf):
+                assert a.image.tobytes() == b.image.tobytes() and a.timestamp == b.timestamp
+            jd, jt = js.get_timestamped_sensor_data()
+            td, tt = ts.get_timestamped_sensor_data()
+            assert jt == tt
+            if jd is not None:
+                for key in ("accelerometer", "gyroscope", "timestamps"):
+                    np.testing.assert_array_equal(jd[key], td[key])
+        ji, ti = js.get_intrinsics(), ts.get_intrinsics()
+        for a, b in zip(ji, ti):
+            np.testing.assert_array_equal(a.matrix, b.matrix)
+        jc, tc = js.try_get_latest_rgb_frame(), ts.try_get_latest_rgb_frame()
+        assert jc.image.tobytes() == tc.image.tobytes()
+        np.testing.assert_array_equal(js.render_color_depth(jc.sequence_num), ts.render_color_depth(tc.sequence_num))
+
+
+@pytest.mark.parametrize("clock_offsets", [(0.0, 0.004, -0.003), (0.0, 0.011, 0.02)])
+def test_camera_rig_synchronizes_identically(clock_offsets):
+    """Both packages' CameraRig pick the same reference timestamps, frames,
+    time deltas and IMU batches from the same sources."""
+    out = []
+    for pkg, rig_cls in ((jsyn, JaxCameraRig), (tsyn, PortCameraRig)):
+        sources, rig_ext, _, _ = pkg.make_synthetic_rig(
+            _spec(pkg, num_sources=3, color_camera=False, color_resolution=None), clock_offsets=clock_offsets
+        )
+        seq = []
+        with rig_cls(sources, rig_extrinsics=rig_ext, imu_source=sources[0].name) as rig:
+            for _ in range(6):
+                sync = rig.get_synchronized_frames()
+                seq.append(sync)
+            names = rig.get_source_names()
+        out.append((seq, names))
+    (j_seq, j_names), (t_seq, t_names) = out
+    assert j_names == t_names
+    for a, b in zip(j_seq, t_seq):
+        assert a.timestamp == b.timestamp and a.max_time_delta == b.max_time_delta
+        assert a.sensor_timestamp == b.sensor_timestamp
+        assert a.get_all_timestamps() == b.get_all_timestamps()
+        for fa, fb in zip(a.get_all_frames(), b.get_all_frames()):
+            assert fa.image.tobytes() == fb.image.tobytes()
+        if a.sensor_data is not None:
+            np.testing.assert_array_equal(a.sensor_data["gyroscope"], b.sensor_data["gyroscope"])
+
+
+@pytest.mark.parametrize("align", [True, False])
+@pytest.mark.parametrize("with_scale", [True, False])
+def test_ate_rmse_matches_reference(align, with_scale):
+    rng = np.random.default_rng(3)
+    gt = np.cumsum(rng.normal(size=(50, 3)), 0)
+    est = gt @ jgeom.quat_to_matrix(_quat(rng)).T * 1.1 + rng.normal(scale=0.05, size=gt.shape)
+    assert teval.ate_rmse(est, gt, align=align, with_scale=with_scale) == jeval.ate_rmse(
+        est, gt, align=align, with_scale=with_scale
+    )
+
+
+def test_trajectory_metrics_match_reference():
+    rng = np.random.default_rng(4)
+    poses = np.stack([jgeom.se3_matrix(_rot(rng), rng.normal(size=3)) for _ in range(20)])
+    noisy = poses.copy()
+    noisy[:, :3, 3] += rng.normal(scale=0.01, size=(20, 3))
+    assert teval.rpe_translation(noisy, poses) == jeval.rpe_translation(noisy, poses)
+    assert teval.rotation_rmse_deg(noisy, poses) == jeval.rotation_rmse_deg(noisy, poses)
+
+
+def test_slam_interface_types_match_reference():
+    """The port's enum has the reference's members; a pose round-trips
+    through both packages' SlamPose identically."""
+    assert [s.name for s in tiface.TrackingState] == [s.name for s in jiface.TrackingState]
+    assert tiface.TrackingState is not jiface.TrackingState
+    rng = np.random.default_rng(5)
+    m = jgeom.se3_matrix(_rot(rng), rng.normal(size=3))
+    a = jiface.SlamPose.from_4x4_matrix(m, timestamp=1.5)
+    b = tiface.SlamPose.from_4x4_matrix(m, timestamp=1.5)
+    np.testing.assert_array_equal(a.to_4x4_matrix(), b.to_4x4_matrix())
+    np.testing.assert_array_equal(a.position, b.position)
+    assert tiface.SlamConfig().__dict__.keys() == jiface.SlamConfig().__dict__.keys()
+
+
+def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
+    """A fresh interpreter imports every module of the port and
+    ``chip_smoke``; neither JAX nor any ``thor_slam_tpu`` module loads."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import thor_slam_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'thor_slam_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'thor_slam_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 30

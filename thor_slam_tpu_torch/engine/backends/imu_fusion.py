@@ -16,7 +16,7 @@ import logging
 
 import numpy as np
 
-from thor_slam_tpu import geometry
+from thor_slam_tpu_torch import geometry
 from thor_slam_tpu_torch.engine import imu as imu_mod
 
 logger = logging.getLogger(__name__)

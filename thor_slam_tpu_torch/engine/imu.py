@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from thor_slam_tpu import geometry
+from thor_slam_tpu_torch import geometry
 from thor_slam_tpu_torch.ops import lie
 
 GRAVITY_W = np.asarray([0.0, 0.0, -9.81])

@@ -18,8 +18,8 @@ import logging
 import numpy as np
 import torch
 
-from thor_slam_tpu.camera.types import SynchronizedFrameSet
-from thor_slam_tpu.slam.interface import SlamPose, TrackingState
+from thor_slam_tpu_torch.camera.types import SynchronizedFrameSet
+from thor_slam_tpu_torch.slam.interface import SlamPose, TrackingState
 from thor_slam_tpu_torch.engine import convert
 from thor_slam_tpu_torch.engine import tracker as trk
 

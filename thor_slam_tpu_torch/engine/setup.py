@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from thor_slam_tpu import geometry
-from thor_slam_tpu.camera.rig import RigCalibration
+from thor_slam_tpu_torch import geometry
+from thor_slam_tpu_torch.camera.rig import RigCalibration
 from thor_slam_tpu_torch.engine.tracker import CameraSetup
 from thor_slam_tpu_torch.ops import rectify
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from thor_slam_tpu.camera.types import SynchronizedFrameSet
+from thor_slam_tpu_torch.camera.types import SynchronizedFrameSet
 
 
 def stage_images(

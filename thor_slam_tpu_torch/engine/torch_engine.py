@@ -33,10 +33,10 @@ import logging
 import numpy as np
 import torch
 
-from thor_slam_tpu import geometry
-from thor_slam_tpu.camera.rig import RigCalibration
-from thor_slam_tpu.camera.types import SynchronizedFrameSet
-from thor_slam_tpu.slam.interface import (
+from thor_slam_tpu_torch import geometry
+from thor_slam_tpu_torch.camera.rig import RigCalibration
+from thor_slam_tpu_torch.camera.types import SynchronizedFrameSet
+from thor_slam_tpu_torch.slam.interface import (
     MapPoint,
     SlamConfig,
     SlamEngine,

@@ -16,8 +16,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from thor_slam_tpu import geometry
-from thor_slam_tpu.camera.types import Extrinsics, Intrinsics
+from thor_slam_tpu_torch import geometry
+from thor_slam_tpu_torch.camera.types import Extrinsics, Intrinsics
 from thor_slam_tpu_torch.ops.image import remap_bilinear
 
 _NO_MAP = (np.zeros((0, 0), np.float32), np.zeros((0, 0), np.float32))

@@ -19,6 +19,8 @@ plain version.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from thor_slam_tpu_torch.utils import cuda_lib
@@ -69,20 +71,38 @@ def _dense(t: torch.Tensor) -> bool:
     return t.permute(order).is_contiguous()
 
 
+def _job(cost_sdx, out, reverse, add=None, add2=None) -> list[int]:
+    """One scan of ``thor_sgm_scan``: pointers, shape and element strides of
+    (S, D, X) views that share one layout."""
+    s, _, x = cost_sdx.shape
+    ss, sd, sx = cost_sdx.stride()
+    ptr = lambda v: 0 if v is None else v.data_ptr()  # noqa: E731
+    return [cost_sdx.data_ptr(), ptr(add), ptr(add2), out.data_ptr(), s, x, ss, sx, sd, int(reverse)]
+
+
+def _launch_scan(jobs: list[list[int]], d: int, p1: float, p2: float, device: torch.device) -> None:
+    """One launch of the scan kernel running every job of ``jobs`` (at most 2)."""
+    lib = cuda_lib.load()
+    desc = (ctypes.c_longlong * (10 * len(jobs)))(*[v for job in jobs for v in job])
+    stream = torch.cuda.current_stream(device).cuda_stream
+    cuda_lib.check(lib.thor_sgm_scan(len(jobs), desc, d, float(p1), float(p2), stream), "thor_sgm_scan")
+    counts["sgm_scan"]["kernel"] += 1
+
+
 def sgm_aggregate_dir_cuda(
     cost_sdx: torch.Tensor, p1: float, p2: float, reverse: bool, add_to: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Launch ``thor_sgm_scan`` on the current stream.
+    """Launch ``thor_sgm_scan`` on the current stream, one job.
 
     ``cost_sdx`` may be any permuted view of a contiguous float32 volume;
     the output (and ``add_to``) share its strides.
     """
-    lib = cuda_lib.load()
+    cuda_lib.load()
     if not cost_sdx.is_cuda:
         raise ValueError(f"SGM scan kernel needs CUDA tensors, got {cost_sdx.device}")
     if cost_sdx.dtype != torch.float32 or cost_sdx.dim() != 3:
         raise ValueError(f"SGM scan takes a (S, D, X) float32 volume, got {cost_sdx.dtype} {tuple(cost_sdx.shape)}")
-    s, d, x = cost_sdx.shape
+    d = cost_sdx.shape[1]
     if d > MAX_DISPARITIES:
         raise ValueError(f"SGM scan takes D <= {MAX_DISPARITIES}, got {d}")
     if not _dense(cost_sdx):
@@ -97,14 +117,8 @@ def sgm_aggregate_dir_cuda(
         or add_to.device != cost_sdx.device
     ):
         raise ValueError("add_to must be a float32 volume of the cost's shape, strides and device")
-    ss, sd, sx = cost_sdx.stride()
-    stream = torch.cuda.current_stream(cost_sdx.device).cuda_stream
-    status = lib.thor_sgm_scan(
-        cost_sdx.data_ptr(), None if add_to is None else add_to.data_ptr(), out.data_ptr(),
-        s, x, d, ss, sx, sd, int(reverse), float(p1), float(p2), stream,
-    )
-    cuda_lib.check(status, "thor_sgm_scan")
-    counts["sgm_scan"]["kernel"] += 1
+    if out.numel():
+        _launch_scan([_job(cost_sdx, out, reverse, add_to)], d, p1, p2, cost_sdx.device)
     return out
 
 
@@ -130,29 +144,63 @@ def sgm_aggregate_dir(
     return sgm_aggregate_dir_cuda(cost_sdx, p1, p2, reverse, add_to)
 
 
-def _aggregate_4dir(scan, cost_dhw: torch.Tensor, p1: float, p2: float, num_paths: int) -> torch.Tensor:
-    d, h, w = cost_dhw.shape
-    # One (H, W, D) copy serves both pairs: disparity is its unit-stride axis,
-    # which keeps every scan step's loads and stores coalesced on the card.
-    cost_hwd = cost_dhw.permute(1, 2, 0).contiguous()
-    horiz = cost_hwd.permute(1, 2, 0)  # (W, D, H): steps along x, lines are rows
-    pair_h = scan(horiz, p1, p2, True, scan(horiz, p1, p2, False))
-    agg = torch.empty((d, h, w), dtype=torch.float32, device=cost_dhw.device)
-    if num_paths < 4:
-        return agg.copy_(pair_h.permute(1, 2, 0))
-    vert = cost_hwd.permute(0, 2, 1)  # (H, D, W): steps along y, lines are columns
-    pair_v = scan(vert, p1, p2, True, scan(vert, p1, p2, False))
-    return torch.add(pair_h.permute(1, 2, 0), pair_v.permute(1, 0, 2), out=agg)
+# Step-major views of a (D, H, W) volume: the horizontal paths step along x
+# (lines are rows), the vertical ones along y (lines are columns).
+def _horizontal(v: torch.Tensor) -> torch.Tensor:
+    return v.permute(2, 0, 1)  # (W, D, H)
+
+
+def _vertical(v: torch.Tensor) -> torch.Tensor:
+    return v.permute(1, 0, 2)  # (H, D, W)
 
 
 def sgm_aggregate_4dir_plain(cost_dhw: torch.Tensor, p1: float, p2: float, num_paths: int = 4) -> torch.Tensor:
-    """:func:`sgm_aggregate_4dir` through the plain scan."""
-    return _aggregate_4dir(sgm_aggregate_dir_plain, cost_dhw.float(), p1, p2, num_paths)
+    """:func:`sgm_aggregate_4dir` through the plain scan: each pair sums in
+    its reverse scan, then the two pairs in float32."""
+    cost = cost_dhw.float()
+    scan = sgm_aggregate_dir_plain
+    h = _horizontal(cost)
+    pair_h = scan(h, p1, p2, True, scan(h, p1, p2, False)).permute(1, 2, 0)
+    if num_paths < 4:
+        return pair_h.contiguous()
+    v = _vertical(cost)
+    pair_v = scan(v, p1, p2, True, scan(v, p1, p2, False)).permute(1, 0, 2)
+    return pair_h + pair_v
 
 
 def sgm_aggregate_4dir_cuda(cost_dhw: torch.Tensor, p1: float, p2: float, num_paths: int = 4) -> torch.Tensor:
-    """:func:`sgm_aggregate_4dir` through the scan kernel."""
-    return _aggregate_4dir(sgm_aggregate_dir_cuda, cost_dhw.float(), p1, p2, num_paths)
+    """:func:`sgm_aggregate_4dir` in three launches of the scan kernel, on
+    the (D, H, W) volume as it lies (``num_paths`` 2: two launches).
+
+    1. forward horizontal and forward vertical, into two scratch volumes;
+    2. reverse horizontal + its forward result -> ``agg`` (the pair sum);
+    3. reverse vertical + its forward result + ``agg`` -> ``agg`` in place:
+       (L_rev_v + L_fwd_v) + pair_h, bit-equal to the reference's
+       pair_h + pair_v since float32 addition commutes.
+    """
+    cuda_lib.load()
+    if not cost_dhw.is_cuda:
+        raise ValueError(f"SGM scan kernel needs CUDA tensors, got {cost_dhw.device}")
+    cost = cost_dhw.float()
+    if cost.dim() != 3 or not cost.is_contiguous():
+        raise ValueError(f"4-direction SGM takes a contiguous (D, H, W) volume, got strides {cost.stride()}")
+    d = cost.shape[0]
+    if d > MAX_DISPARITIES:
+        raise ValueError(f"SGM scan takes D <= {MAX_DISPARITIES}, got {d}")
+    agg = torch.empty_like(cost)
+    if not cost.numel():
+        return agg
+    h, v = _horizontal, _vertical
+    fwd_h = torch.empty_like(cost)
+    if num_paths < 4:
+        _launch_scan([_job(h(cost), h(fwd_h), False)], d, p1, p2, cost.device)
+        _launch_scan([_job(h(cost), h(agg), True, h(fwd_h))], d, p1, p2, cost.device)
+        return agg
+    fwd_v = torch.empty_like(cost)
+    _launch_scan([_job(h(cost), h(fwd_h), False), _job(v(cost), v(fwd_v), False)], d, p1, p2, cost.device)
+    _launch_scan([_job(h(cost), h(agg), True, h(fwd_h))], d, p1, p2, cost.device)
+    _launch_scan([_job(v(cost), v(agg), True, v(fwd_v), v(agg))], d, p1, p2, cost.device)
+    return agg
 
 
 def sgm_aggregate_4dir(cost_dhw: torch.Tensor, p1: float, p2: float, num_paths: int = 4) -> torch.Tensor:

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from thor_slam_tpu.camera.types import Intrinsics, SynchronizedFrameSet
+from thor_slam_tpu_torch.camera.types import Intrinsics, SynchronizedFrameSet
 from thor_slam_tpu_torch.ops import stereo
 from thor_slam_tpu_torch.ops.image import remap_bilinear, resize_bilinear
 from thor_slam_tpu_torch.ops.rectify import StereoRectification, rectification_from_extrinsics

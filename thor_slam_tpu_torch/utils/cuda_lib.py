@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` call compiles every source under ``csrc/`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, which is
-loaded with ``ctypes``. The build runs at first use, inside the checkout
+Every source under ``csrc/`` is compiled for Hopper (``sm_90a``) by its
+own ``nvcc`` process, all started together, and the objects are linked
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use, inside the checkout
 (``thor_slam_tpu_torch/_build/<source hash>/libthor_kernels.so``), and is
 reused while the sources and flags are unchanged. Nothing here runs at
 import time, so the package imports on hosts without ``nvcc`` or a card.
@@ -23,7 +24,7 @@ BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libthor_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib: ctypes.CDLL | None = None
@@ -66,11 +67,25 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{LIB_NAME}.{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    nvcc = _nvcc()
+    objs = [out.with_name(f".{src.stem}.{os.getpid()}.o") for src in _sources()]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_sources(), objs)
+    ]
+    try:
+        build_log = "".join(proc.communicate()[0] for proc in procs)
+        failed = [src.name for src, proc in zip(_sources(), procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 
@@ -85,7 +100,7 @@ def load() -> ctypes.CDLL:
         lib.thor_patches_gather.restype = i
         lib.thor_fast_nms.argtypes = [p, p, p, i, i, i, f, p]
         lib.thor_fast_nms.restype = i
-        lib.thor_sgm_scan.argtypes = [p, p, p, i, i, i, ll, ll, ll, i, f, f, p]
+        lib.thor_sgm_scan.argtypes = [i, ctypes.POINTER(ll), i, f, f, p]
         lib.thor_sgm_scan.restype = i
         lib.thor_sgm_winner_lr.argtypes = [p, i, i, i, p, p, p, p, p, p, p]
         lib.thor_sgm_winner_lr.restype = i

@@ -7,14 +7,14 @@ port's own camera setup. The reference's deployed size is 640x400 with
 
 from __future__ import annotations
 
-from thor_slam_tpu.camera.rig import RigCalibration
-from thor_slam_tpu.camera.sources.synthetic import (
+from thor_slam_tpu_torch.camera.rig import RigCalibration
+from thor_slam_tpu_torch.camera.sources.synthetic import (
     OrbitTrajectory,
     SyntheticRigSpec,
     SyntheticWorld,
     make_synthetic_rig,
 )
-from thor_slam_tpu.camera.types import Extrinsics, IMUExtrinsics
+from thor_slam_tpu_torch.camera.types import Extrinsics, IMUExtrinsics
 from thor_slam_tpu_torch.engine import tracker as trk
 from thor_slam_tpu_torch.engine.setup import build_camera_setup
 
