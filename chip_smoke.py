@@ -5,14 +5,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. With
 ``--kernels-only`` it runs phases 0-2 alone and prints their numbers, no
 result line: a kernel PR copies the script into a ``git archive`` of its
 parent and runs parent, change, change, parent in one call, so both
-versions' kernels are checked and timed by the same code. It
+versions' kernels are checked and timed by the same code. With
+``--fast-phases`` it also times the FAST kernel built with one phase left
+out at a time, which shows where its time goes. It
 
 0. requires a CUDA device, prints the card's name and power limit and pins
    full-f32 precision;
 1. builds the kernels from ``thor_slam_tpu_torch/csrc`` and prints the
    build time and the compiler's per-kernel resource report;
 2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (patch gather exactly, FAST-9 within 1e-6; the SGM
+   main path's shapes (patch gather exactly: the single-stack entry and
+   the pair entry, which gathers from two stacks in one launch and clips
+   the centres, also on ragged shapes, M = 1 and strided stacks; FAST-9
+   within 1e-6 at 4 and 8 images of 400x640, 720p, ragged shapes and a
+   rendered frame set; the SGM
    scan, every direction and the 4-direction path, and the winner/LR pass
    exactly at D in {48, 64, 96, 256} on ragged H, W, H = 1, W < D, the
    flagship and the 720p geometry, for integral and non-integral
@@ -21,12 +27,18 @@ versions' kernels are checked and timed by the same code. It
    events), its call time (CUDA events around one call, the host's side
    included), the plain version's, the one PyTorch call that computes the
    same function where there is one (the gather: ``images[cam, ys, xs]``),
-   and its bound (bytes over 3.35 TB/s);
+   and its bound (bytes over 3.35 TB/s). The gather's row is the pair
+   launch of a KLT level (with one and two single-stack launches beside
+   it), FAST's the 8-image launch of the stereo pair (with the 4-image
+   launch and the rendered frame set beside it). A module without a pair
+   entry (a parent tree under ``--kernels-only``) is timed by its
+   single-stack launches alone;
 3. drives ``TorchSlamEngine`` over 40 ticks of the synthetic flagship rig
    (4 stereo cameras at 640x400, 512 keypoints per camera, a 1280x800
    color imager on each), times ``process_frames``, and checks tracking,
-   ATE against ground truth and that the tick launched both tracking
-   kernels and never their plain versions;
+   ATE against ground truth and that the ticks launched the gather exactly
+   once per KLT level and tick plus once per keyframe, FAST exactly once
+   per keyframe, and never their plain versions;
 4. on every 5th tick, as ``scripts/run_pipeline.py`` does, produces the
    RGB-D frame of the first camera (``RGBDProcessor``, color mode, D = 64,
    depth aligned to the 1280x800 color image), times it, checks its depth
@@ -175,75 +187,205 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
+def _gather_inputs(gen, shape, m, dev):
+    """Two (C, H, W) stacks, a camera-major ``cam`` and (2, M, 2) centres that
+    spill 30 px past every border, so many windows are clipped."""
+    c, h, w = shape
+    stacks = [torch.rand(shape, generator=gen).to(dev) for _ in range(2)]
+    cam = torch.arange(c, dtype=torch.int32).repeat_interleave(-(-m // c))[:m].to(dev)
+    cx = torch.randint(-30, w + 30, (2, m), generator=gen, dtype=torch.int32)
+    cy = torch.randint(-30, h + 30, (2, m), generator=gen, dtype=torch.int32)
+    return stacks, cam, torch.stack([cx, cy], -1).to(dev)
+
+
+def _index_gather(images, cam, centers, size):
+    """The library yardstick of one stack: the index tensors of one
+    advanced-index call, built outside the timed window."""
+    _, h, w = images.shape
+    r = size // 2
+    offs = torch.arange(-r, r + 1, device=images.device)
+    xs = torch.clamp(centers[:, 0], r, w - r - 1).long()[:, None, None] + offs[None, None, :]
+    ys = torch.clamp(centers[:, 1], r, h - r - 1).long()[:, None, None] + offs[None, :, None]
+    return cam.long()[:, None, None], ys, xs
+
+
 def check_patch_gather(patches_cuda, dev) -> dict:
+    """Gather kernel vs plain, exact: the single-stack entry at the main
+    path's shapes, and the pair entry (where the module has one: the script
+    also times a parent tree that has none) against two plain calls, with
+    its clipped centres against the tensor clamps, at those shapes and on
+    ragged ones. Times one single-stack launch, two of them in a row, and
+    the pair launch."""
     gen = torch.Generator(device="cpu").manual_seed(SEED)
+    has_pair = hasattr(patches_cuda, "extract_patches_pair_cuda")
     main_path = None
-    for (c, h, w), size in (((4, 400, 640), 19), ((4, 200, 320), 19), ((4, 400, 640), 37)):
-        m = 2048
-        images = torch.rand((c, h, w), generator=gen).to(dev)
-        cam = torch.arange(c, dtype=torch.int32).repeat_interleave(m // c).to(dev)
-        # Centres spill 30 px past every border, so many windows are clipped.
-        cx = torch.randint(-30, w + 30, (m,), generator=gen, dtype=torch.int32)
-        cy = torch.randint(-30, h + 30, (m,), generator=gen, dtype=torch.int32)
-        centers = torch.stack([cx, cy], -1).to(dev)
-        got = patches_cuda.extract_patches_flat_cuda(images, cam, centers, size)
-        want = patches_cuda.extract_patches_flat_plain(images, cam, centers, size)
-        torch.cuda.synchronize()
-        exact = torch.equal(got, want)
+    # (shape, S, M): the main path's three, then M = 1, M a multiple of no
+    # block's patch count, a patch as large as the image, a generic size.
+    cases = [((4, 400, 640), 19, 2048), ((4, 200, 320), 19, 2048), ((4, 400, 640), 37, 2048),
+             ((3, 41, 37), 9, 1), ((3, 41, 37), 19, 13), ((2, 37, 53), 37, 7), ((1, 64, 48), 5, 1001)]
+    for shape, size, m in cases:
+        c, h, w = shape
+        stacks, cam, centers = _gather_inputs(gen, shape, m, dev)
+        timed = m == 2048
+        for images, ctr in zip(stacks, centers):
+            got = patches_cuda.extract_patches_flat_cuda(images, cam, ctr, size)
+            want = patches_cuda.extract_patches_flat_plain(images, cam, ctr, size)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"patch gather differs from its plain version at {shape}, S={size}, M={m}")
         err = float((got - want).abs().max())
-        if not exact:
-            raise AssertionError(f"patch gather differs from its plain version at {(c, h, w)}, S={size}")
-        kernel = lambda: patches_cuda.extract_patches_flat_cuda(images, cam, centers, size)  # noqa: E731
-        dev_ms = device_ms(kernel)
-        ms = call_ms(kernel)
-        plain_ms = call_ms(lambda: patches_cuda.extract_patches_flat_plain(images, cam, centers, size))
-        # The library yardstick: one advanced-index call, indices built outside the window.
-        r = size // 2
-        offs = torch.arange(-r, r + 1, device=dev)
-        xs = (torch.clamp(centers[:, 0], r, w - r - 1).long()[:, None, None] + offs[None, None, :])
-        ys = (torch.clamp(centers[:, 1], r, h - r - 1).long()[:, None, None] + offs[None, :, None])
-        cam_b = cam.long()[:, None, None]
-        if not torch.equal(images[cam_b, ys, xs], got):
+        if has_pair:
+            got2, clipped = patches_cuda.extract_patches_pair_cuda(*stacks, cam, centers, size)
+            want2 = torch.stack([
+                patches_cuda.extract_patches_flat_plain(images, cam, ctr, size) for images, ctr in zip(stacks, centers)
+            ])
+            r = size // 2
+            clamps = torch.stack(
+                [torch.clamp(centers[..., 0], r, w - r - 1), torch.clamp(centers[..., 1], r, h - r - 1)], -1
+            )
+            torch.cuda.synchronize()
+            err = max(err, float((got2 - want2).abs().max()))
+            if not torch.equal(got2, want2) or not torch.equal(clipped, clamps) or clipped.dtype != torch.int32:
+                raise AssertionError(f"pair gather differs from two plain calls at {shape}, S={size}, M={m}")
+            # One eye of a (C, 2, H, W) tensor, as BRIEF hands it over.
+            both = torch.stack(stacks, 1)
+            got3, _ = patches_cuda.extract_patches_pair_cuda(both[:, 0], both[:, 1], cam, centers, size)
+            if not torch.equal(got3, want2):
+                raise AssertionError(f"pair gather on strided stacks differs at {shape}, S={size}, M={m}")
+        if not timed:
+            print(f"patch_gather C,H,W={c},{h},{w} S={size} M={m}: exact (pair entry checked: {has_pair})")
+            continue
+        images, ctr = stacks[0], centers[0]
+        single = lambda: patches_cuda.extract_patches_flat_cuda(images, cam, ctr, size)  # noqa: E731
+        two = lambda: [patches_cuda.extract_patches_flat_cuda(i, cam, k, size) for i, k in zip(stacks, centers)]  # noqa: E731
+        dev_ms, two_ms = device_ms(single), device_ms(two)
+        ms = call_ms(single)
+        plain_ms = call_ms(lambda: patches_cuda.extract_patches_flat_plain(images, cam, ctr, size))
+        index = [_index_gather(i, cam, k, size) for i, k in zip(stacks, centers)]
+        if not torch.equal(images[index[0]], got2[0] if has_pair else single()):
             raise AssertionError("the advanced-index yardstick differs from the gather")
-        library_ms = device_ms(lambda: images[cam_b, ys, xs])
+        library_ms = device_ms(lambda: images[index[0]])
         # The patch pixels read once (windows rarely overlap), the indices, the patches written.
         nbytes = 2 * m * size * size * 4 + m * 3 * 4
         print(
-            f"patch_gather C,H,W={c},{h},{w} S={size} M={m}: exact={exact} max_abs_err={err} device "
-            f"{dev_ms:.4f} ms  call {ms:.4f} ms  plain {plain_ms:.4f} ms  images[cam, ys, xs] {library_ms:.4f} ms  "
-            f"bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.2f} MB)"
+            f"patch_gather C,H,W={c},{h},{w} S={size} M={m}: exact=True max_abs_err={err} device "
+            f"{dev_ms:.4f} ms  two launches {two_ms:.4f} ms  call {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"images[cam, ys, xs] {library_ms:.4f} ms  bound {bound_ms(nbytes):.4f} ms ({nbytes / 1e6:.2f} MB)"
         )
+        row = dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms(nbytes),
+                   bound_by="bytes", library_ms=library_ms, two_single_launches_ms=two_ms)
+        if has_pair:
+            pair = lambda: patches_cuda.extract_patches_pair_cuda(*stacks, cam, centers, size)  # noqa: E731
+            # Both stacks' pixels and patches, cam once, the centres in and the clipped centres out.
+            pair_bytes = 2 * 2 * m * size * size * 4 + m * 4 + 2 * 2 * m * 2 * 4
+            pair_row = dict(
+                max_abs_err=err, ms=device_ms(pair), call_ms=call_ms(pair),
+                plain_ms=call_ms(lambda: patches_cuda.extract_patches_pair_plain(*stacks, cam, centers, size)),
+                bound_ms=bound_ms(pair_bytes), bound_by="bytes",
+                library_ms=device_ms(lambda: [s[i] for s, i in zip(stacks, index)]),
+                two_single_launches_ms=two_ms, single_ms=dev_ms, single_call_ms=ms, single_bound_ms=row["bound_ms"],
+                single_library_ms=library_ms,
+            )
+            print(
+                f"patch_gather pair C,H,W=2x{c},{h},{w} S={size} M=2x{m}: device {pair_row['ms']:.4f} ms "
+                f"({pair_row['ms'] / two_ms:.3f} of two single launches)  call {pair_row['call_ms']:.4f} ms  "
+                f"plain {pair_row['plain_ms']:.4f} ms  two images[cam, ys, xs] {pair_row['library_ms']:.4f} ms  "
+                f"bound {pair_row['bound_ms']:.4f} ms ({pair_bytes / 1e6:.2f} MB)"
+            )
+            row = pair_row
         if (c, h, w, size) == (4, 400, 640, 19):
-            main_path = dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=library_ms)
+            main_path = row  # the launch KLT makes at level 0: the pair where there is one
     return main_path
 
 
+def _rendered_pair(dev):
+    """One rendered frame set of the flagship rig, (4, 2, 400, 640) float32 in [0, 1]."""
+    from thor_slam_tpu_torch.utils.flagship import flagship_rig
+
+    sources = flagship_rig(4, 640, 400, 512)[3]
+    frames = np.stack([[s.render_frame(3, eye) for eye in (0, 1)] for s in sources])
+    return (torch.from_numpy(frames).float() * (1.0 / 255.0)).to(dev)
+
+
 def check_fast(fast_cuda, dev) -> dict:
+    """FAST kernel vs plain (<= 1e-6; it has been 0.0) at the main path's
+    shape, the stereo pair's 8 images, 720p, ragged shapes (W % 4 != 0, H
+    and W below one tile, H = 1, a tile edge inside the last column) and a
+    rendered frame set; times the 4- and 8-image launches on the noise
+    image and the 8-image launch on the rendered one."""
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
     main_path = None
-    for shape in ((4, 400, 640), (4, 720, 1280)):
-        images = torch.rand(shape, generator=gen).to(dev)
+    shapes = [(4, 400, 640), (8, 400, 640), (4, 720, 1280), (1, 37, 53), (2, 1, 9), (1, 3, 3), (3, 33, 66),
+              (1, 65, 129), (2, 400, 642), "rendered"]
+    for shape in shapes:
+        images = _rendered_pair(dev).reshape(8, 400, 640) if shape == "rendered" else torch.rand(shape, generator=gen).to(dev)
         raw_k, nms_k = fast_cuda.fast_scores_cuda(images, 0.05)
         raw_p, nms_p = fast_cuda.fast_scores_plain(images, 0.05)
         torch.cuda.synchronize()
         err = max(float((raw_k - raw_p).abs().max()), float((nms_k - nms_p).abs().max()))
-        corners = int((nms_k > 0).sum())
+        corners, peaks = int((raw_k > 0).sum()), int((nms_k > 0).sum())
         if not err <= 1e-6:
             raise AssertionError(f"FAST kernel differs from its plain version by {err} at {shape}")
+        label = f"fast9_nms C,H,W={','.join(map(str, images.shape))}" + (" (rendered flagship frame set)" if shape == "rendered" else "")
+        if images.shape[1:] != (400, 640) and shape != (4, 720, 1280):
+            print(f"{label}: max_abs_err={err} corners={corners} nms_peaks={peaks}")
+            continue
         kernel = lambda: fast_cuda.fast_scores_cuda(images, 0.05)  # noqa: E731
         dev_ms = device_ms(kernel)
         ms = call_ms(kernel)
         plain_ms = call_ms(lambda: fast_cuda.fast_scores_plain(images, 0.05))
         nbytes = 3 * images.numel() * 4  # images in, raw and NMS maps out
         print(
-            f"fast9_nms C,H,W={','.join(map(str, shape))}: max_abs_err={err} nms_peaks={corners} device "
+            f"{label}: max_abs_err={err} corners={corners} ({corners / images.numel():.2%}) nms_peaks={peaks} device "
             f"{dev_ms:.4f} ms  call {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms(nbytes):.4f} ms"
         )
-        if shape == (4, 400, 640):
-            main_path = dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=None)
+        row = dict(max_abs_err=err, ms=dev_ms, call_ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms(nbytes), bound_by="bytes", library_ms=None)
+        if shape == (4, 400, 640):  # one eye's images: the launch of the design before the pair launch
+            one_eye = dict(four_image_ms=dev_ms, four_image_call_ms=ms, four_image_bound_ms=bound_ms(nbytes))
+        elif shape == (8, 400, 640):  # the main path's launch: both eyes of the 4 cameras
+            main_path = dict(row, **one_eye)
+        elif shape == "rendered":
+            main_path["rendered_ms"] = dev_ms
     return main_path
+
+
+def fast_phases(dev) -> None:
+    """Where the FAST kernel's time goes (``--fast-phases``): ``csrc/fast.cu``
+    built with one phase left out at a time (its ``THOR_FAST_SKIP`` switch)
+    and timed on the noise image beside the full kernel."""
+    import ctypes
+
+    from thor_slam_tpu_torch.utils import cuda_lib
+
+    out = cuda_lib.BUILD_DIR / "fast_phases"
+    out.mkdir(parents=True, exist_ok=True)
+    names = {0: "full", 1: "without the scores", 2: "without the corner test and the scores", 3: "without the stores"}
+    procs = {
+        k: subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", f"-DTHOR_FAST_SKIP={k}", "-o", str(out / f"skip{k}.so"),
+             str(cuda_lib.CSRC_DIR / "fast.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k in names
+    }
+    images = torch.rand((4, 400, 640), generator=torch.Generator(device="cpu").manual_seed(SEED + 1)).to(dev)
+    raw, nms = torch.empty_like(images), torch.empty_like(images)
+    times = {}
+    for k, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on fast.cu with THOR_FAST_SKIP={k}:\n{log}")
+        lib = ctypes.CDLL(str(out / f"skip{k}.so"))
+        lib.thor_fast_nms.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        lib.thor_fast_nms.restype = ctypes.c_int
+
+        def launch(lib=lib):
+            stream = torch.cuda.current_stream().cuda_stream  # the capturing stream under device_ms
+            status = lib.thor_fast_nms(images.data_ptr(), raw.data_ptr(), nms.data_ptr(), 4, 400, 640, 0.05, stream)
+            if status != 0:
+                raise RuntimeError(f"thor_fast_nms: cudaError {status}")
+
+        times[k] = device_ms(launch)
+    print("fast9_nms phases, C,H,W=4,400,640 noise, device ms: " + ", ".join(f"{names[k]} {t:.4f}" for k, t in times.items()))
 
 
 def _sgm_volume(dhw, gen, integral: bool, high: int = 33):
@@ -511,9 +653,14 @@ def run_slice(dev, scan_launches: int) -> dict:
         raise AssertionError(f"TRACKING held on only {held:.0%} of ticks after tick {first}")
     if not ate < 0.05:
         raise AssertionError(f"ATE {ate:.4f} m >= 0.05 m")
-    if counts["patch_gather"]["kernel"] < 4 * TICKS:
-        raise AssertionError(f"patch gather launched {counts['patch_gather']['kernel']} < 4 x {TICKS}")
-    if counts["fast9_nms"]["kernel"] < 2 * keyframes or keyframes == 0:
+    # One gather launch per KLT level and tick (both frames), one per keyframe
+    # for BRIEF (both eyes); one FAST launch per keyframe (both eyes).
+    want_gathers = params.klt_levels * TICKS + keyframes
+    if counts["patch_gather"]["kernel"] != want_gathers:
+        raise AssertionError(
+            f"patch gather launched {counts['patch_gather']['kernel']}, not {params.klt_levels} x {TICKS} + {keyframes}"
+        )
+    if counts["fast9_nms"]["kernel"] != keyframes or keyframes == 0:
         raise AssertionError(f"FAST launched {counts['fast9_nms']['kernel']} for {keyframes} keyframes")
     rgbd_frames = TICKS // RGBD_EVERY
     if len(rgbd_ms) != rgbd_frames:
@@ -854,6 +1001,8 @@ def main() -> int:
 
     patch = check_patch_gather(patches_cuda, dev)
     fast = check_fast(fast_cuda, dev)
+    if "--fast-phases" in sys.argv[1:]:
+        fast_phases(dev)
     scan = check_sgm_scan(sgm_cuda, dev)
     winner = check_winner(sgm_cuda, dev)
     if "--kernels-only" in sys.argv[1:]:

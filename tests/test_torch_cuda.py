@@ -70,7 +70,7 @@ def _missing_library():
     raise RuntimeError("kernel library unavailable")
 
 
-@pytest.mark.parametrize("wrapper", ["patches", "fast", "sgm_scan", "sgm_4dir", "sgm_winner_lr"])
+@pytest.mark.parametrize("wrapper", ["patches", "patches_pair", "fast", "sgm_scan", "sgm_4dir", "sgm_winner_lr"])
 def test_device_tensor_never_falls_back(monkeypatch, wrapper):
     """A non-CPU tensor gets the kernel or an exception, never the plain
     version: with the loader failing, the wrapper raises and the plain
@@ -85,6 +85,10 @@ def test_device_tensor_never_falls_back(monkeypatch, wrapper):
             cam = torch.empty(8, dtype=torch.int32, device="meta")
             centers = torch.empty((8, 2), dtype=torch.int32, device="meta")
             patches_cuda.extract_patches_flat(imgs, cam, centers, 9)
+        elif wrapper == "patches_pair":
+            cam = torch.empty(8, dtype=torch.int32, device="meta")
+            centers = torch.empty((2, 8, 2), dtype=torch.int32, device="meta")
+            patches_cuda.extract_patches_pair(imgs, imgs, cam, centers, 9)
         elif wrapper == "fast":
             fast_cuda.fast_scores_batched(imgs, 0.05)
         elif wrapper == "sgm_scan":
@@ -105,6 +109,11 @@ def test_kernel_entry_rejects_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError):
         patches_cuda.extract_patches_flat_cuda(
             torch.rand(1, 16, 16), torch.zeros(2, dtype=torch.int32), torch.zeros((2, 2), dtype=torch.int32), 5
+        )
+    with pytest.raises(ValueError):
+        patches_cuda.extract_patches_pair_cuda(
+            torch.rand(1, 16, 16), torch.rand(1, 16, 16), torch.zeros(2, dtype=torch.int32),
+            torch.zeros((2, 2, 2), dtype=torch.int32), 5,
         )
     with pytest.raises(ValueError):
         sgm_cuda.sgm_aggregate_dir_cuda(torch.rand(8, 16, 4), 6.0, 96.0, False)
@@ -136,27 +145,108 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,size", [((4, 400, 640), 19), ((4, 200, 320), 19), ((4, 400, 640), 37), ((3, 41, 37), 9)])
-def test_patch_kernel_matches_plain(cuda_device, shape, size):
-    gen = torch.Generator().manual_seed(5)
+# (shape, S, M): the main path's three, then M = 1, M a multiple of no
+# block's patch count, a patch as tall as the image, generic sizes.
+PATCH_CASES = [
+    ((4, 400, 640), 19, 2048), ((4, 200, 320), 19, 2048), ((4, 400, 640), 37, 2048), ((3, 41, 37), 9, 2048),
+    ((3, 41, 37), 9, 1), ((3, 41, 37), 19, 13), ((2, 37, 53), 37, 7), ((1, 64, 48), 5, 1001), ((2, 9, 300), 3, 77),
+]
+
+
+def _patch_inputs(shape, m, device, seed=5):
+    """Two stacks, a camera-major cam and (2, M, 2) centres up to 30 px
+    outside every border."""
+    gen = torch.Generator().manual_seed(seed)
     c, h, w = shape
-    m = 2048
-    imgs = torch.rand(shape, generator=gen).to(cuda_device)
-    cam = torch.arange(c, dtype=torch.int32).repeat_interleave(m // c + 1)[:m].to(cuda_device)
+    stacks = [torch.rand(shape, generator=gen).to(device) for _ in range(2)]
+    cam = torch.arange(c, dtype=torch.int32).repeat_interleave(m // c + 1)[:m].to(device)
     centers = torch.stack(
-        [torch.randint(-30, w + 30, (m,), generator=gen), torch.randint(-30, h + 30, (m,), generator=gen)], -1
-    ).int().to(cuda_device)
-    got = patches_cuda.extract_patches_flat_cuda(imgs, cam, centers, size)
-    want = patches_cuda.extract_patches_flat_plain(imgs, cam, centers, size)
+        [torch.randint(-30, w + 30, (2, m), generator=gen), torch.randint(-30, h + 30, (2, m), generator=gen)], -1
+    ).int().to(device)
+    return stacks, cam, centers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,m", PATCH_CASES)
+def test_patch_kernel_matches_plain(cuda_device, shape, size, m):
+    """A copy: exact. The single-stack entry on each stack, the pair entry
+    against two plain calls, its clipped centres against the tensor clamps,
+    and the pair entry on the two eyes of a (C, 2, H, W) tensor."""
+    stacks, cam, centers = _patch_inputs(shape, m, cuda_device)
+    want = torch.stack(
+        [patches_cuda.extract_patches_flat_plain(s, cam, k, size) for s, k in zip(stacks, centers)]
+    )
+    for k in range(2):
+        assert torch.equal(patches_cuda.extract_patches_flat_cuda(stacks[k], cam, centers[k], size), want[k])
+    patches_cuda.reset_counts()
+    got, clipped = patches_cuda.extract_patches_pair_cuda(*stacks, cam, centers, size)
+    assert patches_cuda.counts == {"kernel": 1, "plain": 0}
+    _, clamps = patches_cuda.extract_patches_pair_plain(*stacks, cam, centers, size)
     torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert clipped.dtype == torch.int32 and torch.equal(clipped, clamps)
+    both = torch.stack(stacks, 1)
+    got, _ = patches_cuda.extract_patches_pair_cuda(both[:, 0], both[:, 1], cam, centers, size)
     assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 400, 640), (4, 720, 1280), (1, 37, 53)])
+def test_patch_wrapper_refusals(cuda_device):
+    """What the kernel does not take raises before any launch."""
+    stacks, cam, centers = _patch_inputs((2, 40, 56), 6, cuda_device)
+    a, b = stacks
+    pair = patches_cuda.extract_patches_pair_cuda
+    patches_cuda.reset_counts()
+    with pytest.raises(ValueError, match="one shape"):
+        pair(a, b[:, :-1].contiguous(), cam, centers, 9)
+    with pytest.raises(ValueError, match="dense"):
+        pair(a, b.transpose(1, 2).contiguous().transpose(1, 2), cam, centers, 9)
+    with pytest.raises(ValueError, match="dense"):
+        patches_cuda.extract_patches_flat_cuda(a[:, :, ::2], cam, centers[0], 9)
+    with pytest.raises(ValueError, match="float32"):
+        pair(a.double(), b.double(), cam, centers, 9)
+    with pytest.raises(ValueError, match="int32"):
+        pair(a, b, cam, centers.long(), 9)
+    with pytest.raises(ValueError, match=r"\(2, M, 2\)"):
+        pair(a, b, cam, centers[0], 9)
+    with pytest.raises(ValueError, match="mismatch"):
+        pair(a, b, cam[:-1], centers, 9)
+    with pytest.raises(ValueError, match="odd"):
+        pair(a, b, cam, centers, 8)
+    with pytest.raises(ValueError):
+        fast_cuda.fast_scores_cuda(a.transpose(1, 2), 0.05)
+    with pytest.raises(ValueError):
+        fast_cuda.fast_scores_cuda(a.double(), 0.05)
+    assert patches_cuda.counts == {"kernel": 0, "plain": 0}
+
+
+# The main path's 4 and 8 images, 720p, then W % 4 != 0, H and W below one
+# 128 x 16 tile, H = 1, a single pixel's neighbourhood, a tile edge in the
+# last column and row, and rows that start off a 16-byte boundary.
+FAST_SHAPES = [
+    (4, 400, 640), (8, 400, 640), (4, 720, 1280), (1, 37, 53), (2, 1, 9), (1, 3, 3), (3, 33, 66), (1, 17, 129),
+    (1, 16, 128), (2, 400, 642), (1, 130, 260),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FAST_SHAPES)
 def test_fast_kernel_matches_plain(cuda_device, shape):
+    """Within 1e-6 (the sums keep the plain version's order, so 0.0 so far)."""
     imgs = torch.rand(shape, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    raw_k, nms_k = fast_cuda.fast_scores_cuda(imgs, 0.05)
+    raw_p, nms_p = fast_cuda.fast_scores_plain(imgs, 0.05)
+    torch.cuda.synchronize()
+    assert float((raw_k - raw_p).abs().max()) <= 1e-6
+    assert float((nms_k - nms_p).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_fast_kernel_on_an_unaligned_view(cuda_device):
+    """Images that start off a 16-byte boundary take the scalar loads and stores."""
+    base = torch.rand(2 * 40 * 64 + 1, generator=torch.Generator().manual_seed(7)).to(cuda_device)
+    imgs = base[1:].reshape(2, 40, 64)
+    assert imgs.is_contiguous() and imgs.data_ptr() % 16 != 0
     raw_k, nms_k = fast_cuda.fast_scores_cuda(imgs, 0.05)
     raw_p, nms_p = fast_cuda.fast_scores_plain(imgs, 0.05)
     torch.cuda.synchronize()
@@ -198,8 +288,11 @@ def test_engine_tracks_on_the_card_through_the_kernels(cuda_device):
             gt.append((np.linalg.inv(gt0) @ g)[:3, 3])
     assert engine.get_tracking_state() == TrackingState.TRACKING
     assert ate_rmse(np.asarray(est), np.asarray(gt)) < 0.05
-    assert patches_cuda.counts["kernel"] >= 80 and patches_cuda.counts["plain"] == 0
-    assert fast_cuda.counts["kernel"] >= 2 and fast_cuda.counts["plain"] == 0
+    # One FAST launch a keyframe (both eyes); one gather launch per KLT level
+    # (2) and tick for both frames, and one a keyframe for BRIEF.
+    keyframes = fast_cuda.counts["kernel"]
+    assert keyframes >= 1 and fast_cuda.counts["plain"] == 0
+    assert patches_cuda.counts == {"kernel": 2 * 20 + keyframes, "plain": 0}
 
 
 def _scan_inputs(shape, seed, with_add, layout):

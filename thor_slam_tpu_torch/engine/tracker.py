@@ -8,8 +8,9 @@ state and the body pose:
   pyramid, pyramidal KLT over all C*N landmark slots, then multi-camera
   RANSAC PnP with a Gauss-Newton polish and covariance;
 * keyframe ticks only (:func:`run_keyframe_frontend` + :func:`mint_bank`):
-  FAST-9 detection, upright BRIEF, stereo matching, photometric disparity
-  refinement, triangulation and the landmark bank refresh.
+  FAST-9 detection (one launch for both eyes of every camera), upright
+  BRIEF (one gather launch for both eyes), stereo matching, photometric
+  disparity refinement, triangulation and the landmark bank refresh.
 
 The reference selects the keyframe branch with a device-side ``lax.cond``;
 here it is a host ``if`` on the refresh flag, one 1-byte readback per
@@ -341,25 +342,30 @@ def run_keyframe_frontend(
 ) -> KeyframeProducts:
     """Keyframe work: detect -> describe -> stereo associate -> triangulate."""
     p = params
-    left = images[:, 0].contiguous()
-    right = images[:, 1].contiguous()
-    left_sm = gaussian_blur(left, 2.0, radius=4)
-    right_sm = gaussian_blur(right, 2.0, radius=4)
+    images = images.contiguous()
+    c, _, h, w = images.shape
+    left, right = images[:, 0], images[:, 1]
+    smooth = gaussian_blur(images, 2.0, radius=4)  # both eyes in one pass
 
-    def detect(ims):
-        return fast.detect_keypoints_batched(
-            ims,
-            threshold=p.fast_threshold,
-            max_keypoints=p.max_keypoints,
-            cell_size=p.cell_size,
-            per_cell=p.per_cell,
-            border_margin=p.border_margin,
-        )
-
-    kp_l = detect(left)
-    kp_r = detect(right)
-    desc_l = brief.compute_descriptors_batched(left_sm, kp_l.xy, kp_l.valid)
-    desc_r = brief.compute_descriptors_batched(right_sm, kp_r.xy, kp_r.valid)
+    # One detection over the 2C images of the stereo pair (image 2c + eye):
+    # one FAST launch and one selection, all per image.
+    kp = fast.detect_keypoints_batched(
+        images.reshape(2 * c, h, w),
+        threshold=p.fast_threshold,
+        max_keypoints=p.max_keypoints,
+        cell_size=p.cell_size,
+        per_cell=p.per_cell,
+        border_margin=p.border_margin,
+    )
+    n = kp.xy.shape[1]
+    xy = kp.xy.reshape(c, 2, n, 2).transpose(0, 1).contiguous()  # (2, C, N, 2): eye-major
+    valid = kp.valid.reshape(c, 2, n).transpose(0, 1).contiguous()
+    score = kp.score.reshape(c, 2, n)
+    kp_l, kp_r = (fast.Keypoints(xy[eye], score[:, eye], valid[eye]) for eye in (0, 1))
+    # Both eyes' patches in one gather launch, each from its eye of `smooth`.
+    desc = brief.compute_descriptors_pair(smooth[:, 0], smooth[:, 1], xy, valid)
+    desc_l = brief.Descriptors(desc.bits[0], desc.valid[0])
+    desc_r = brief.Descriptors(desc.bits[1], desc.valid[1])
 
     # Stereo association on rectified coordinates (the images stay raw).
     rect_xy_l = calib.raw_pixels_to_rect(

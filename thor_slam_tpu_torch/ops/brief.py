@@ -72,14 +72,30 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).int()
 
 
+def _describe(patches: torch.Tensor) -> torch.Tensor:
+    """(..., P, P) smoothed patches -> (..., 8) packed upright BRIEF words."""
+    sampling = torch.as_tensor(UPRIGHT_SAMPLING, device=patches.device)
+    samples = patches.reshape(*patches.shape[:-2], -1) @ sampling  # (..., 512)
+    return pack_bits(samples[..., :NUM_BITS] < samples[..., NUM_BITS:])
+
+
 def compute_descriptors_batched(
     images: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor
 ) -> Descriptors:
     """Upright BRIEF-256 for (C, N, 2) keypoints on (C, H, W) smoothed images."""
-    c, n = xy.shape[:2]
     centers = torch.round(xy).int()
     patches = patches_cuda.extract_patches_batched(images, centers, size=PATCH_SIZE)
-    sampling = torch.as_tensor(UPRIGHT_SAMPLING, device=images.device)
-    samples = patches.reshape(c, n, -1) @ sampling  # (C, N, 512)
-    bits = samples[..., :NUM_BITS] < samples[..., NUM_BITS:]
-    return Descriptors(bits=pack_bits(bits), valid=valid)
+    return Descriptors(bits=_describe(patches), valid=valid)
+
+
+def compute_descriptors_pair(
+    images_a: torch.Tensor, images_b: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor
+) -> Descriptors:
+    """Upright BRIEF-256 on two smoothed (C, H, W) stacks (the left and the
+    right eye) with one gather launch: ``xy`` is (2, C, N, 2), row 0 on
+    ``images_a`` and row 1 on ``images_b``; bits come back (2, C, N, 8)."""
+    _, c, n = xy.shape[:3]
+    cam = torch.arange(c, dtype=torch.int32, device=xy.device).repeat_interleave(n)
+    centers = torch.round(xy).int().reshape(2, c * n, 2)
+    patches, _ = patches_cuda.extract_patches_pair(images_a, images_b, cam, centers, PATCH_SIZE)
+    return Descriptors(bits=_describe(patches).reshape(2, c, n, NUM_WORDS), valid=valid)

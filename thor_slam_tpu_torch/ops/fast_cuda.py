@@ -1,7 +1,8 @@
 """FAST-9 score + 3x3 NMS: the CUDA kernel ``csrc/fast.cu`` and its plain version.
 
 Replaces ``thor_slam_tpu/ops/fast_pallas.py::_fast_kernel``; runs on
-keyframe ticks, once for the left stack and once for the right. Both
+keyframe ticks, once for both eyes of every camera (the (C, 2, H, W) frame
+tensor viewed as 2C images). Both
 versions implement the XLA reference (``fast.fast_score_map`` +
 ``fast.nms3x3``) on the whole image, with the excess sums accumulated in
 ``CIRCLE_OFFSETS`` order, so kernel and plain version agree bit for bit.

@@ -34,15 +34,16 @@ class TrackResult(NamedTuple):
 
 
 def _extract_windows(
-    images: torch.Tensor, cam: torch.Tensor, centers: torch.Tensor, wr: int
+    prev: torch.Tensor, cur: torch.Tensor, cam: torch.Tensor, centers: torch.Tensor, wr: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(M, S, S) windows at clipped integer centres and the clipped centres."""
-    _, h, w = images.shape
-    cx = torch.clamp(centers[:, 0], wr, w - wr - 1)
-    cy = torch.clamp(centers[:, 1], wr, h - wr - 1)
-    ctr = torch.stack([cx, cy], -1)
-    win = patches_cuda.extract_patches_flat(images, cam, ctr, 2 * wr + 1)
-    return win, ctr
+    """Windows of both frames of a level: (2, M, S, S) at the clipped integer
+    centres, and the (2, M, 2) clipped centres, from one gather launch.
+
+    ``centers`` is (2, M, 2) int32: row 0 in ``prev``, row 1 in ``cur``. The
+    gather clips them to [wr, W-wr-1] x [wr, H-wr-1] itself (the reference
+    clamps them in tensor code before its gather) and returns what it used.
+    """
+    return patches_cuda.extract_patches_pair(prev, cur, cam, centers, 2 * wr + 1)
 
 
 def _shifted_views(win: torch.Tensor, radius: int, m: int) -> torch.Tensor:
@@ -96,14 +97,12 @@ def _lk_level(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Inverse-compositional LK at one level, flat over all M rig tracks."""
     wr = radius + m + 1
-    c_prev = torch.round(pts_prev).int()
-    c_cur = torch.round(pts_cur).int()
-    win_p, cp = _extract_windows(prev, cam, c_prev, wr)
-    win_c, cc = _extract_windows(cur, cam, c_cur, wr)
-    views_p = _shifted_views(win_p, radius, m)
-    views_c = _shifted_views(win_c, radius, m)
-    cp = cp.float()
-    cc = cc.float()
+    n = pts_prev.shape[0]
+    centers = torch.round(torch.stack([pts_prev, pts_cur])).int()
+    win, ctr = _extract_windows(prev, cur, cam, centers, wr)
+    views = _shifted_views(win.reshape(2 * n, *win.shape[2:]), radius, m)  # both frames, one copy
+    views_p, views_c = views[:n], views[n:]
+    cp, cc = ctr.float().unbind(0)
     mf = float(m)
 
     # Template + central-difference gradients at the previous position: all

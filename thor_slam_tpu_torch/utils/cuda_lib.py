@@ -96,7 +96,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-        lib.thor_patches_gather.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.thor_patches_gather.argtypes = [p, p, ll, ll, p, p, p, p, i, i, i, i, i, i, p]
         lib.thor_patches_gather.restype = i
         lib.thor_fast_nms.argtypes = [p, p, p, i, i, i, f, p]
         lib.thor_fast_nms.restype = i
