@@ -75,6 +75,24 @@ tree it shows which gate an outcome of that phase turned on. It
    go through both kernels and their plain versions at the rig's shapes.
    Each phase asserts its gather and FAST launch counts as the slice does,
    and no plain call.
+7. drives the engine modes, on frames already rendered: ``deployed``, the
+   full-engine phase's 240 ticks, save, load and relocalization again with
+   the deployed YAML's backend values (pipelined at depth 1, light ticks,
+   adaptive half-res), held to the same bars plus the latency contract
+   (the first call returns None, ``flush()`` the last tick's pose), light
+   ticks that never refresh and ``upload_stats`` that add up; its calls
+   are timed without a synchronization after each, and a second run under
+   torch.profiler counts the synchronizing runtime calls per call and
+   inside ``track_step`` by tick type (light, full, keyframe); ``deep``,
+   pipeline depth 4 against depth 1 (BA, IMU, loop closure) on the slice's
+   ticks with the IMU packets of its trajectory added, and on the first 60
+   ticks of the full-engine render (a flying start: its ATE is printed,
+   see DEEP_DEPTH); ``defer_sync``, the slice's 40 ticks (VO only)
+   against the synchronous run of the same frames; ``half``, the slice's
+   ticks with half-resolution light ticks, then the adaptive controller
+   told the stream is paced (where it degraded is printed, no bar). PR 6's
+   phases run the synchronous engine with light ticks off, as then. Every
+   phase of the modes asserts the launch identities.
 
 Every phase's frames are rendered ahead by a pool of worker processes (a
 frame is a deterministic function of its index), which are idle while ticks
@@ -82,9 +100,10 @@ are timed and stopped before the result is printed.
 
 Any failure exits non-zero without printing a result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
-JSON record, with launches on the main path and per period (5 ticks: one
-RGB-D frame), and each kernel's loss per period, launches x (device ms -
-bound ms), by which the kernels are ranked. Imports nothing of JAX or of
+JSON record, with launches on all main paths and per period of the slice
+(5 ticks: one RGB-D frame), and each kernel's loss per period, launches x
+(device ms - bound ms), by which the kernels are ranked; before it a
+``modes:`` JSON line sums up the engine modes. Imports nothing of JAX or of
 the JAX package.
 """
 
@@ -167,6 +186,26 @@ MONO_MIN_LANDMARKS = (40, 20)
 MONO_TAIL_TICKS = 20
 MONO_MAX_ATE_SHARE = 0.15
 SWITCH_TICKS = 10
+# PR 6's phases run the synchronous engine with light ticks off, as then,
+# so that their numbers stay comparable; the phases of the engine modes run
+# the deployed YAML's backend values (config/slam_config.yaml: pipelined,
+# depth 1, light ticks at their default, adaptive half-res, and the masked-
+# camera warm-up that its camera watchdog asks for).
+PR6_MODES = dict(pipelined=False, light_ticks=False)
+DEPLOYED_MODES = dict(
+    prewarm_degraded=True, pipelined=True, pipeline_depth=1, light_ticks=None, light_half_res=False,
+    adaptive_half_res=True,
+)
+DEEP_TICKS = 60  # the full-engine render before its blackout
+DEEP_DEPTH = 4
+# The full-engine render moves at 1 rad/s from its first tick. At depth d the
+# first d dispatches come before any tick is finalized, so the IMU has no
+# finalized pose to predict from (the reference's rule too) and tick 1
+# tracks against a zero-motion prediction: the bank is lost and the start's
+# error stays in the odometry. The ATE bar of tests/test_engine_pipeline_deep.py
+# is therefore held on the slice's slower orbit, with its IMU packets added.
+MAX_DEFER_ATE_DIFF_M = 1e-4
+SYNC_PROFILE_TICKS = 16  # deployed ticks under the profiler, before the blackout
 RENDER_WORKERS = 6  # processes that render frames ahead (at most all cores but two)
 # --tick-launches: ticks under the profiler, then unprofiled ticks.
 PROFILE_TICKS = 28  # the slice refreshes about every 13th tick: two keyframes
@@ -648,13 +687,13 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
 
     config = SlamConfig(num_cameras=8, enable_loop_closure=False)
     overrides = dict(max_keypoints=params.max_keypoints)
-    warm = TorchSlamEngine(params=overrides, device=dev, seed=SEED)
+    warm = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **PR6_MODES)
     warm.initialize(calibration, config)
     for fs in frames[:WARMUP_TICKS]:
         warm.process_frames(fs)
     warm.shutdown()
 
-    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED)
+    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **PR6_MODES)
     engine.initialize(calibration, config)
     torch.cuda.synchronize()
     patches_cuda.reset_counts()
@@ -751,7 +790,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     if not max(rels) < MAX_MEDIAN_REL_ERR or not min(shares) > MIN_VALID_SHARE:
         raise AssertionError(f"RGB-D depth off the bar: valid shares {shares}, median rel errors {rels}")
     reuse = dict(calibration=calibration, traj=traj, frames=frames[:SWITCH_TICKS], tick_ms=tick_ms[:SWITCH_TICKS],
-                 max_keypoints=params.max_keypoints)
+                 max_keypoints=params.max_keypoints, klt_levels=params.klt_levels, all_frames=frames, ate=ate)
     return {name: c["kernel"] for name, c in counts.items()}, len(rgbd_ms), reuse
 
 
@@ -841,19 +880,10 @@ def _angle_deg(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
 
 
-def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, ticks=FULL_TICKS, pool=None) -> dict:
-    """Session 1 (revisit orbit, defaults) and session 2 (relocalization
-    against session 1's saved map). Returns what was measured."""
-    import tempfile
-
-    from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
-    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
-    from thor_slam_tpu_torch.engine import ba, loop, posegraph
-    from thor_slam_tpu_torch.engine.imu import GRAVITY_W
-    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
-
-    config = SlamConfig(num_cameras=2 * num_cams)  # loop closure on: the default
-    overrides = dict(max_keypoints=max_keypoints, **FULL_PARAMS)
+def render_full_inputs(num_cams=4, width=640, height=400, max_keypoints=512, ticks=FULL_TICKS, pool=None) -> dict:
+    """The frame sets of both sessions of the full-engine phase: the revisit
+    orbit with its blackout, then the relocalization session's rig 1 s
+    later."""
     t0 = time.perf_counter()
     calibration, traj, frames = render_session(num_cams, width, height, max_keypoints, ticks, blackout=BLACKOUT, pool=pool)
     render_s = time.perf_counter() - t0
@@ -861,8 +891,53 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
         f"engine: rendered {ticks} frame sets ({num_cams} x 2 x {width}x{height}, IMU on source 0, "
         f"black on ticks {BLACKOUT.start}-{BLACKOUT.stop - 1}) in {render_s:.1f} s"
     )
+    cal2, traj2, frames2 = render_session(
+        num_cams, width, height, max_keypoints, RELOC_TICKS, clock_offsets=(RELOC_OFFSET_S,) * num_cams, pool=pool
+    )
+    return dict(num_cams=num_cams, max_keypoints=max_keypoints, calibration=calibration, traj=traj, frames=frames,
+                cal2=cal2, traj2=traj2, frames2=frames2, render_s=render_s)
 
-    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **FULL_ENGINE_ARGS)
+
+def log_finalized(engine) -> list:
+    """Wrap the engine's finalize: every finalized tick's timestamp, tick
+    type, diagnostics, pose, lifted pose and state, in order (one call of
+    a pipelined engine may finalize several ticks, and returns one pose)."""
+    log = []
+    finalize = engine._finalize_values
+
+    def logged(rec):
+        pose = finalize(rec)
+        log.append(dict(
+            ts=rec["ts"], light=rec["light"], half=rec["half"], diag=dict(engine.last_diagnostics), pose=pose,
+            world=None if pose is None else engine.get_world_pose(pose), state=engine.get_tracking_state(),
+        ))
+        return pose
+
+    engine._finalize_values = logged
+    return log
+
+
+def run_full_engine(dev, inputs: dict, label: str = "engine", stage_solves: bool = True, **engine_args) -> dict:
+    """Session 1 (revisit orbit) and session 2 (relocalization against
+    session 1's saved map) on the frame sets of ``render_full_inputs``,
+    with the full-engine overrides and ``engine_args``. A synchronous
+    engine's calls are timed with the device synchronized after each; a
+    pipelined engine's are not (that would undo the overlap), and its
+    latency contract is checked: the first call returns None, ``flush()``
+    the last tick's pose. ``stage_solves`` times one solve of each backend
+    stage on the final state. Returns what was measured."""
+    from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
+    from thor_slam_tpu_torch.engine.imu import GRAVITY_W
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+
+    num_cams = inputs["num_cams"]
+    config = SlamConfig(num_cameras=2 * num_cams)  # loop closure on: the default
+    overrides = dict(max_keypoints=inputs["max_keypoints"], **FULL_PARAMS)
+    calibration, traj, frames = inputs["calibration"], inputs["traj"], inputs["frames"]
+    ticks = len(frames)
+    pipelined = bool(engine_args.get("pipelined"))
+    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **FULL_ENGINE_ARGS, **engine_args)
     engine.initialize(calibration, config)
     closures = []
     poll = engine._loop.poll
@@ -879,20 +954,21 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
         return res
 
     engine._loop.poll = logged_poll
-    _sync(dev)
-    _reset_counts()
+    paced = []
+    r = _drive(engine, frames, traj, dev,
+               on_tick=lambda i: paced.append(engine._light_ctl.adaptive and engine._light_ctl._pace_ok()))
+    log, tick_ms, counts_1 = r["log"], r["tick_ms"], r["counts"]
     gt0 = traj.pose(frames[0].timestamp)
-    tick_ms, states, est, world, gt = [], [], [], [], []
+    index = {fs.timestamp: i for i, fs in enumerate(frames)}
+    if [index[e["ts"]] for e in log] != list(range(ticks)):
+        raise AssertionError(f"{label}: ticks finalized out of order or not at all")
+    states = [e["state"] for e in log]
     ba_applied = 0
     ba_log = []  # (tick, "rms before->after" where applied, else the gate that refused it)
     skips: dict[str, int] = {}
-    for i, fs in enumerate(frames):
-        t = time.perf_counter()
-        pose = engine.process_frames(fs)
-        _sync(dev)
-        tick_ms.append(1e3 * (time.perf_counter() - t))
-        diag = engine.last_diagnostics
-        states.append(engine.get_tracking_state())
+    est, world, gt = [], [], []
+    for i, e in enumerate(log):
+        diag = e["diag"]
         ba_applied += "ba_rms" in diag
         if "ba_rms" in diag or "ba_skip" in diag:
             ba_log.append((i, "applied %.5f->%.5f" % diag["ba_rms"] if "ba_rms" in diag else f"skip: {diag['ba_skip']}"))
@@ -900,20 +976,19 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
             if key in diag:
                 kind = f"{key}:{str(diag[key]).split()[0].split('=')[0]}"
                 skips[kind] = skips.get(kind, 0) + 1
-        if pose is not None and i not in BLACKOUT:
-            est.append(pose.position.copy())
-            world.append(engine.get_world_pose(pose).position)
-            gt.append((np.linalg.inv(gt0) @ traj.pose(fs.timestamp))[:3, 3])
-    engine.flush()
-    counts_1 = _counts()
+        if e["pose"] is not None and i not in BLACKOUT:
+            est.append(e["pose"].position.copy())
+            world.append(e["world"].position)
+            gt.append((np.linalg.inv(gt0) @ traj.pose(e["ts"]))[:3, 3])
     diag = engine.last_diagnostics
     est, world, gt = np.asarray(est), np.asarray(world), np.asarray(gt)
     imu = engine._imu
     g_true = np.linalg.inv(gt0)[:3, :3] @ GRAVITY_W
     outside = [s for i, s in enumerate(states) if i > 3 and i not in BLACKOUT]
     out = dict(
-        render_s=render_s,
+        render_s=inputs["render_s"],
         tick_ms=tick_ms,
+        run_s=r["run_s"],
         tracking_share=float(np.mean([s == TrackingState.TRACKING for s in outside])),
         loops_closed=engine.loops_closed,
         ba_applied=ba_applied,
@@ -934,33 +1009,59 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
         end_err_map=float(np.linalg.norm(world[-1] - gt[-1])),
         map_correction_m=float(np.linalg.norm(engine.map_t_odom[:3, 3])),
         keyframes=len(engine.get_map().keyframe_poses),
+        refreshed=int(sum(bool(e["diag"]["refreshed"]) for e in log)),
+        light=[e["light"] for e in log],
+        half=[e["half"] for e in log],
+        refreshed_on_light=int(sum(bool(e["diag"]["refreshed"]) and e["light"] for e in log)),
+        upload_stats=dict(engine.upload_stats),
+        paced_calls=int(sum(paced)),
+        first_returned=r["returned"][0],
+        tail_ts=None if r["tail"] is None else r["tail"].timestamp,
+        last_ts=frames[-1].timestamp,
+        pipelined=pipelined,
         counts_session1=counts_1,
     )
     print(
-        f"engine: {ticks} ticks, ms/tick median {statistics.median(tick_ms):.3f} p95 "
-        f"{float(np.percentile(tick_ms, 95)):.3f} max {max(tick_ms):.3f} (first {tick_ms[0]:.1f})"
+        f"{label}: {ticks} ticks, ms per process_frames call median {statistics.median(tick_ms):.3f} p95 "
+        f"{float(np.percentile(tick_ms, 95)):.3f} max {max(tick_ms):.3f} (first {tick_ms[0]:.1f}; "
+        f"{'not ' if pipelined else ''}synchronized after each call); whole run {r['run_s']:.3f} s, "
+        f"{1e3 * r['run_s'] / ticks:.3f} ms a tick"
     )
     print(
-        f"engine: TRACKING on {out['tracking_share']:.1%} of the ticks outside the blackout after tick 3; "
+        f"{label}: TRACKING on {out['tracking_share']:.1%} of the ticks outside the blackout after tick 3; "
         f"keyframes {out['keyframes']}, loops closed {out['loops_closed']}, BA applied on {ba_applied} "
         f"keyframes; skips {json.dumps(skips)}"
     )
-    print(f"engine: BA by tick {json.dumps(ba_log)}")
-    print(f"engine: closures {json.dumps(closures)}")
+    print(f"{label}: BA by tick {json.dumps(ba_log)}")
+    print(f"{label}: closures {json.dumps(closures)}")
     print(
-        f"engine: gravity n={out['gravity_n']} |g|={out['gravity_norm']:.4f} m/s^2, "
+        f"{label}: gravity n={out['gravity_n']} |g|={out['gravity_norm']:.4f} m/s^2, "
         f"{out['gravity_err_deg']:.3f} deg from the truth; accel_pred {out['accel_pred']}, empty IMU windows "
         f"{out['imu_empty_windows']}, gyro bias {diag.get('gyro_bias_rad_s', float('nan')):.5f} rad/s"
     )
     print(
-        f"engine: ATE (unaligned) odometry {out['ate_odom'] * 100:.3f} cm, map-lifted {out['ate_map'] * 100:.3f} cm; "
+        f"{label}: ATE (unaligned) odometry {out['ate_odom'] * 100:.3f} cm, map-lifted {out['ate_map'] * 100:.3f} cm; "
         f"aligned {out['ate_odom_aligned'] * 100:.3f} / {out['ate_map_aligned'] * 100:.3f} cm; "
         f"end error odometry {out['end_err_odom'] * 100:.3f} cm, map-lifted {out['end_err_map'] * 100:.3f} cm; "
         f"|map_t_odom| {out['map_correction_m'] * 100:.3f} cm"
     )
-    print(f"engine: session 1 launch counts {json.dumps(counts_1)}")
+    print(
+        f"{label}: tick types: light {sum(out['light']) / ticks:.1%}, full {1 - sum(out['light']) / ticks:.1%}, "
+        f"half-res {sum(out['half']) / ticks:.1%}; upload_stats {json.dumps(out['upload_stats'])}; adaptive controller "
+        f"{'on' if engine._light_ctl.adaptive else 'off'}, paced (armed) after {out['paced_calls']} of {ticks} calls, "
+        f"degraded: {engine.light_half_active or any(out['half'])}"
+    )
+    print(f"{label}: session 1 launch counts {json.dumps(counts_1)}")
 
-    # Synchronized times of one solve of each backend stage, on the final state.
+    if stage_solves:
+        out["stage_ms"] = _stage_solves(dev, engine, label, num_cams)
+    return _relocalize_session(dev, engine, inputs, out, label, overrides, config, engine_args)
+
+
+def _stage_solves(dev, engine, label: str, num_cams: int) -> dict:
+    """Synchronized times of one solve of each backend stage, on the final state."""
+    from thor_slam_tpu_torch.engine import ba, loop, posegraph
+
     built = engine._ba.build_problem({})
     lb = engine._loop
     q = lb.db[-1]
@@ -978,22 +1079,29 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
         verify_candidate=sync_ms(dev, lambda: lb._verify(cand_e, cam, obs_norm, q_desc, q_valid, 0)),
         posegraph=sync_ms(dev, lambda: posegraph.optimize(graph)),
     )
-    out["stage_ms"] = stage_ms
     print(
-        "engine: one solve, synchronized, median of 5 (ms): "
+        f"{label}: one solve, synchronized, median of 5 (ms): "
         + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured" for k, v in stage_ms.items())
         + f" (DB {len(lb.db)} keyframes x {num_cams} cameras, pose graph {graph.poses.shape[0]} nodes)"
     )
+    return stage_ms
 
-    # Session 2: relocalize against the saved map, clocks 1 s later.
+
+def _relocalize_session(dev, engine, inputs: dict, out: dict, label: str, overrides, config, engine_args) -> dict:
+    """Session 2: save the map, then a fresh engine on a rig whose clocks
+    start 1 s later loads it, relocalizes and tracks in its frame."""
+    import tempfile
+
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+
+    gt0 = inputs["traj"].pose(inputs["frames"][0].timestamp)
+    cal2, traj2, frames2 = inputs["cal2"], inputs["traj2"], inputs["frames2"]
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/map"
         if not engine.save_map(path):
             raise AssertionError("save_map failed")
-        cal2, traj2, frames2 = render_session(
-            num_cams, width, height, max_keypoints, RELOC_TICKS, clock_offsets=(RELOC_OFFSET_S,) * num_cams, pool=pool
-        )
-        eng2 = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **FULL_ENGINE_ARGS)
+        engine.shutdown()
+        eng2 = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **FULL_ENGINE_ARGS, **engine_args)
         eng2.initialize(cal2, config)
         if not eng2.load_map(path):
             raise AssertionError("load_map failed")
@@ -1017,11 +1125,12 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
     eng2._loop.relocalize_attempt = counted_attempt
     eng2.relocalize()
     _reset_counts()
+    poses = [eng2.process_frames(fs) for fs in frames2]
+    poses.append(eng2.flush())
     errs = []
-    for fs in frames2:
-        pose = eng2.process_frames(fs)
+    for pose in poses:
         if pose is not None:
-            g_map = np.linalg.inv(gt0) @ traj2.pose(fs.timestamp)
+            g_map = np.linalg.inv(gt0) @ traj2.pose(pose.timestamp)
             errs.append(float(np.linalg.norm(pose.position - g_map[:3, 3])))
     out.update(
         reloc_attempts=attempts,
@@ -1030,17 +1139,23 @@ def run_full_engine(dev, num_cams=4, width=640, height=400, max_keypoints=512, t
         reloc_errs=errs,
         counts_session2=_counts(),
     )
+    eng2.shutdown()
     print(
-        f"engine: relocalization attempts {json.dumps(attempts)}; state after {RELOC_TICKS} ticks "
+        f"{label}: relocalization attempts {json.dumps(attempts)}; state after {RELOC_TICKS} ticks "
         f"{out['reloc_state'].name}; position error in the saved map's frame median "
         f"{np.median(errs) * 100 if errs else float('nan'):.3f} cm (max {max(errs, default=float('nan')) * 100:.3f})"
     )
-    print(f"engine: session 2 launch counts {json.dumps(out['counts_session2'])}")
+    print(f"{label}: session 2 launch counts {json.dumps(out['counts_session2'])}")
     return out
 
 
-def check_full_engine(r: dict, kernels: bool = True) -> dict:
-    """The full-engine phase's bars; returns its kernel launches."""
+def check_full_engine(
+    r: dict, kernels: bool = True, label: str = "full-engine", klt_levels: int = 2, want_light: bool = False
+) -> dict:
+    """The full-engine phase's bars; returns its kernel launches. Session 1
+    holds the launch identities (no relocalization runs there); a
+    pipelined engine also its latency contract, and light ticks (when the
+    engine ships them) never refresh and are counted in ``upload_stats``."""
     from thor_slam_tpu_torch.slam.interface import TrackingState
 
     failures = []
@@ -1066,6 +1181,17 @@ def check_full_engine(r: dict, kernels: bool = True) -> dict:
     need(r["reloc_ok"], "relocalization did not succeed")
     need(r["reloc_state"] == TrackingState.TRACKING, f"state {r['reloc_state']} after relocalization")
     need(bool(r["reloc_errs"]) and np.median(r["reloc_errs"]) < MAX_RELOC_ERR_M, f"relocalized errors {r['reloc_errs']}")
+    ticks = len(r["light"])
+    _check_counts(f"{label} session 1", dict(tick_ms=r["tick_ms"], keyframes=r["refreshed"], counts=r["counts_session1"]),
+                  klt_levels, failures, kernels)
+    need(not want_light or sum(r["light"]) > 0, "no light tick")
+    stats = r["upload_stats"]
+    need(stats["full"] + stats["light"] + stats["light_half"] == ticks, f"upload_stats {stats} over {ticks} ticks")
+    need(stats["light"] + stats["light_half"] == sum(r["light"]), f"upload_stats {stats}: not {sum(r['light'])} light ticks")
+    need(r["refreshed_on_light"] == 0, f"{r['refreshed_on_light']} light ticks refreshed")
+    if r["pipelined"]:
+        need(r["first_returned"] is None, "the first call of a pipelined engine returned a pose")
+        need(r["tail_ts"] == r["last_ts"], f"flush() returned the pose of {r['tail_ts']}, not of the last tick {r['last_ts']}")
     launches = {
         k: r["counts_session1"][k]["kernel"] + r["counts_session2"][k]["kernel"] for k in r["counts_session1"]
     }
@@ -1081,36 +1207,46 @@ def check_full_engine(r: dict, kernels: bool = True) -> dict:
         for session in ("counts_session1", "counts_session2"):
             need(all(c["kernel"] > 0 and c["plain"] == 0 for c in r[session].values()), f"{session}: {r[session]}")
     if failures:
-        raise AssertionError("full-engine phase: " + "; ".join(failures))
+        raise AssertionError(f"{label} phase: " + "; ".join(failures))
     return launches
 
 
 def _drive(engine, frames, traj, dev, on_tick=None) -> dict:
     """Drive ``engine`` over ``frames`` with the gather and FAST counts
-    set to 0 just before and read just after."""
+    set to 0 just before and read just after the flush. Each call is timed
+    on the host's clock, the device synchronized after it only when the
+    engine is synchronous (it would undo a pipelined engine's overlap);
+    ``on_tick(i)`` runs after call i. Poses, states and keyframes are read
+    from every finalized tick (``log_finalized``): one call of a pipelined
+    engine may finalize several."""
     from thor_slam_tpu_torch.slam.interface import TrackingState
 
+    log = log_finalized(engine)
     _sync(dev)
     _reset_counts()
     gt0 = traj.pose(frames[0].timestamp)
-    tick_ms, refreshed, states, est, gt = [], [], [], [], []
+    tick_ms, returned = [], []
+    t_run = time.perf_counter()
     for i, fs in enumerate(frames):
         t = time.perf_counter()
-        pose = engine.process_frames(fs)
-        _sync(dev)
+        returned.append(engine.process_frames(fs))
+        if not engine._pipelined:
+            _sync(dev)
         tick_ms.append(1e3 * (time.perf_counter() - t))
-        refreshed.append(bool(engine.last_diagnostics["refreshed"]))
-        states.append(engine.get_tracking_state())
         if on_tick is not None:
             on_tick(i)
-        if pose is not None:
-            est.append(pose.position.copy())
-            gt.append((np.linalg.inv(gt0) @ traj.pose(fs.timestamp))[:3, 3])
-    engine.flush()
+    tail = engine.flush()
+    _sync(dev)
+    run_s = time.perf_counter() - t_run
+    poses = [e["pose"] for e in log]
+    states = [e["state"] for e in log]
     first = next((i for i, s in enumerate(states) if s == TrackingState.TRACKING), None)
     return dict(
-        tick_ms=tick_ms, keyframes=int(sum(refreshed)), states=states, est=np.asarray(est), gt=np.asarray(gt),
-        counts=_counts(), first_tracking=first,
+        log=log, returned=returned, tail=tail, tick_ms=tick_ms, run_s=run_s, counts=_counts(), poses=poses,
+        keyframes=int(sum(bool(e["diag"]["refreshed"]) for e in log)), states=states,
+        est=np.asarray([p.position for p in poses if p is not None]),
+        gt=np.asarray([(np.linalg.inv(gt0) @ traj.pose(p.timestamp))[:3, 3] for p in poses if p is not None]),
+        first_tracking=first,
         held=float(np.mean([s == TrackingState.TRACKING for s in states[first:]])) if first is not None else 0.0,
     )
 
@@ -1219,7 +1355,7 @@ def run_mono_phases(dev, reuse: dict, inputs: dict, max_keypoints=512, kernels: 
         inputs["mixed"][k] for k in ("klt_levels", "calibration", "traj", "frames", "render_s")
     )
     check_on_rig_frames(dev, "mixed", frames, calibration, max_keypoints, kernels)
-    engine = TorchSlamEngine(params=dict(max_keypoints=max_keypoints), device=dev, seed=SEED)
+    engine = TorchSlamEngine(params=dict(max_keypoints=max_keypoints), device=dev, seed=SEED, **PR6_MODES)
     engine.initialize(calibration, SlamConfig(num_cameras=9, enable_loop_closure=False))
     r = _drive(engine, frames, traj, dev)
     state = engine._tracker_state
@@ -1244,7 +1380,7 @@ def run_mono_phases(dev, reuse: dict, inputs: dict, max_keypoints=512, kernels: 
 
     calibration, traj, frames, render_s = (inputs["mono"][k] for k in ("calibration", "traj", "frames", "render_s"))
     check_on_rig_frames(dev, "all-mono", frames, calibration, max_keypoints, kernels)
-    engine = TorchSlamEngine(params=dict(max_keypoints=max_keypoints, **MONO_PARAMS), device=dev, seed=SEED)
+    engine = TorchSlamEngine(params=dict(max_keypoints=max_keypoints, **MONO_PARAMS), device=dev, seed=SEED, **PR6_MODES)
     engine.initialize(calibration, SlamConfig(num_cameras=2, enable_loop_closure=False))
     attempts, boot, promoted = [], {}, []
 
@@ -1299,7 +1435,7 @@ def run_mono_phases(dev, reuse: dict, inputs: dict, max_keypoints=512, kernels: 
 
     # The two switches on the slice's first ticks.
     overrides = dict(max_keypoints=reuse["max_keypoints"], median_prefilter=True, oriented_descriptors=True)
-    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED)
+    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **PR6_MODES)
     engine.initialize(reuse["calibration"], SlamConfig(num_cameras=8, enable_loop_closure=False))
     r = _drive(engine, reuse["frames"], reuse["traj"], dev)
     ate = ate_rmse(r["est"], r["gt"])
@@ -1315,6 +1451,264 @@ def run_mono_phases(dev, reuse: dict, inputs: dict, max_keypoints=512, kernels: 
     if failures:
         raise AssertionError("mono phases: " + "; ".join(failures))
     return launches
+
+
+def _ms_line(r) -> str:
+    ms = r["tick_ms"]
+    return (f"ms per call median {statistics.median(ms):.3f} p95 {float(np.percentile(ms, 95)):.3f} max {max(ms):.3f}, "
+            f"{1e3 * r['run_s'] / len(ms):.3f} ms a tick over the run")
+
+
+def with_imu(frames, traj, rate_hz: float = 400.0) -> list:
+    """The frame sets with the IMU packets of source 0 added, as a synthetic
+    source delivers them (``camera/sources/synthetic.py``): every sample of
+    the trajectory from the last packet up to the tick's timestamp. No
+    image is rendered again."""
+    import dataclasses
+
+    out, n0 = [], 0
+    for fs in frames:
+        n1 = int(np.floor(fs.timestamp * rate_hz))
+        ticks = np.arange(n0, n1)
+        n0 = max(n0, n1)
+        if len(ticks) == 0:
+            out.append(fs)
+            continue
+        ts = ticks / rate_hz
+        samples = [traj.imu_sample(float(t)) for t in ts]
+        data = dict(accelerometer=np.stack([a for _, a in samples]), gyroscope=np.stack([g for g, _ in samples]),
+                    timestamps=ts, timestamp=float(ts[-1]), sequence_num=int(ticks[-1]))
+        out.append(dataclasses.replace(fs, sensor_data=data, sensor_timestamp=float(ts[-1])))
+    return out
+
+
+def run_deep(dev, inputs: dict, reuse: dict, kernels: bool = True) -> dict:
+    """The engine with BA, the IMU and loop closure at pipeline depth 1 and
+    DEEP_DEPTH (adaptive half-res off, so the two runs ship alike), on two
+    sequences. The slice's frame sets with the IMU packets of source 0
+    (``with_imu``) are held to the bars of tests/test_engine_pipeline_deep.py.
+    The first DEEP_TICKS of the full-engine render start moving at 1 rad/s
+    on their first tick (see DEEP_DEPTH): there every bar but the ATE's is
+    held, and both ATEs are printed. Returns the runs' launches."""
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+    from thor_slam_tpu_torch.slam.interface import SlamConfig
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    failures: list[str] = []
+    launches = {"patch_gather": 0, "fast9_nms": 0}
+    sequences = [
+        ("slice + IMU", with_imu(reuse["all_frames"], reuse["traj"]), reuse["traj"], reuse["calibration"],
+         dict(max_keypoints=reuse["max_keypoints"]), {}, True),
+        ("full render, flying start", inputs["frames"][:DEEP_TICKS], inputs["traj"], inputs["calibration"],
+         dict(max_keypoints=inputs["max_keypoints"], **FULL_PARAMS), FULL_ENGINE_ARGS, False),
+    ]
+    for name, frames, traj, calibration, params, engine_args, ate_bar in sequences:
+        out = {}
+        for depth in (1, DEEP_DEPTH):
+            engine = TorchSlamEngine(params=params, device=dev, seed=SEED, pipelined=True, pipeline_depth=depth,
+                                     adaptive_half_res=False, **engine_args)
+            engine.initialize(calibration, SlamConfig(num_cameras=2 * len(calibration.source_names)))
+            r = _drive(engine, frames, traj, dev)
+            solved = sum(
+                "ba_rms" in e["diag"] or not str(e["diag"].get("ba_skip", "window")).startswith(("window", "joined"))
+                for e in r["log"]
+            )
+            r.update(solved=solved, empty=engine.imu_empty_windows, ate=ate_rmse(r["est"], r["gt"]),
+                     loop=engine._config.enable_loop_closure, light=sum(e["light"] for e in r["log"]),
+                     pred_err=[e["diag"].get("imu_pred_err_m") for e in r["log"]])
+            print(
+                f"deep: {name}, depth {depth}, {len(frames)} ticks (BA, IMU, loop closure), {_ms_line(r)}; first calls "
+                f"returned {[p is not None for p in r['returned'][:depth + 1]]}; BA solved {solved}, empty IMU "
+                f"windows {r['empty']}, keyframes {r['keyframes']}, light ticks {r['light']}, inliers of the first "
+                f"ticks {[e['diag']['num_inliers'] for e in r['log'][:6]]}, ATE {r['ate'] * 100:.3f} cm; launch "
+                f"counts {json.dumps(r['counts'])}"
+            )
+            for k, n in _check_counts(f"deep ({name}, depth {depth})", r, 2, failures, kernels).items():
+                launches[k] += n
+            out[depth] = r
+            engine.shutdown()
+        d1, dn = out[1], out[DEEP_DEPTH]
+        if not (d1["solved"] >= 1 and dn["solved"] >= 1):
+            failures.append(f"deep ({name}): BA solved {d1['solved']} / {dn['solved']} times")
+        if not (d1["empty"] <= 2 and dn["empty"] <= 2) or not any(e is not None for e in dn["pred_err"]):
+            failures.append(f"deep ({name}): empty IMU windows {d1['empty']} / {dn['empty']}, or no prediction")
+        if not all(p is None for p in dn["returned"][:DEEP_DEPTH]) or not dn["loop"]:
+            failures.append(f"deep ({name}): the first {DEEP_DEPTH} calls returned {dn['returned'][:DEEP_DEPTH]}")
+        if ate_bar and not dn["ate"] < 1.5 * d1["ate"] + 0.02:
+            failures.append(f"deep ({name}): ATE at depth {DEEP_DEPTH} {dn['ate']:.4f} m against {d1['ate']:.4f} m")
+    if failures:
+        raise AssertionError("deep phase: " + "; ".join(failures))
+    return launches
+
+
+def run_defer_sync(dev, reuse: dict, kernels: bool = True) -> dict:
+    """The slice's frames, VO only (BA and the IMU off), synchronous and
+    under ``defer_sync``: every deferred call returns None, the flush gives
+    one pose a tick, and the ATE is the synchronous run's within
+    MAX_DEFER_ATE_DIFF_M. Returns both runs' launches."""
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+    from thor_slam_tpu_torch.slam.interface import SlamConfig
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    failures: list[str] = []
+    launches = {"patch_gather": 0, "fast9_nms": 0}
+    frames, traj = reuse["all_frames"], reuse["traj"]
+    runs = {}
+    for name, modes in (("synchronous", dict(light_ticks=False)), ("defer_sync", dict(pipelined=True, defer_sync=True))):
+        engine = TorchSlamEngine(params=dict(max_keypoints=reuse["max_keypoints"]), device=dev, seed=SEED,
+                                 enable_ba=False, use_imu=False, **modes)
+        engine.initialize(reuse["calibration"], SlamConfig(num_cameras=8, enable_loop_closure=False))
+        r = _drive(engine, frames, traj, dev)
+        r.update(ate=ate_rmse(r["est"], r["gt"]), flushed=list(engine.last_flush_poses))
+        print(f"defer_sync: {name}, {len(frames)} ticks (VO), {_ms_line(r)}; ATE {r['ate'] * 100:.4f} cm; "
+              f"keyframes {r['keyframes']}; launch counts {json.dumps(r['counts'])}")
+        for k, n in _check_counts(f"defer_sync ({name})", r, reuse["klt_levels"], failures, kernels).items():
+            launches[k] += n
+        runs[name] = r
+        engine.shutdown()
+    sync, defer = runs["synchronous"], runs["defer_sync"]
+    diff = max(
+        (float(np.linalg.norm(a.position - b.position)) for a, b in zip(sync["returned"], defer["flushed"])
+         if a is not None and b is not None),
+        default=float("nan"),
+    )
+    print(f"defer_sync: largest per-tick position difference from the synchronous run {diff:.3e} m, "
+          f"ATE difference {abs(defer['ate'] - sync['ate']) * 100:.6f} cm")
+    if not all(p is None for p in defer["returned"]):
+        failures.append("defer_sync: a call returned a pose before the flush")
+    if len(defer["flushed"]) != len(frames) or defer["tail"] is not defer["flushed"][-1]:
+        failures.append(f"defer_sync: {len(defer['flushed'])} flushed poses for {len(frames)} ticks")
+    if not abs(defer["ate"] - sync["ate"]) < MAX_DEFER_ATE_DIFF_M:
+        failures.append(f"defer_sync: ATE {defer['ate']:.6f} m against the synchronous {sync['ate']:.6f} m")
+    if failures:
+        raise AssertionError("defer_sync phase: " + "; ".join(failures))
+    return launches
+
+
+def run_half(dev, reuse: dict, kernels: bool = True) -> dict:
+    """The slice's frames with half-resolution light ticks (the slice's
+    engine otherwise): half-res light ticks run and the ATE stays under 5
+    cm. Then the deployed engine with the adaptive controller told the
+    stream is paced (``pace_override``: a rig that drops frames): the tick
+    on which it degraded, if any, and its busy EMA are printed, no bar (the
+    outcome depends on the host). Returns both runs' launches."""
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+    from thor_slam_tpu_torch.slam.interface import SlamConfig
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    failures: list[str] = []
+    launches = {"patch_gather": 0, "fast9_nms": 0}
+    frames, traj = reuse["all_frames"], reuse["traj"]
+    config = SlamConfig(num_cameras=8, enable_loop_closure=False)
+    engine = TorchSlamEngine(params=dict(max_keypoints=reuse["max_keypoints"]), device=dev, seed=SEED,
+                             light_ticks=True, light_half_res=True)
+    engine.initialize(reuse["calibration"], config)
+    r = _drive(engine, frames, traj, dev)
+    halves = sum(e["half"] and e["light"] for e in r["log"])
+    ate = ate_rmse(r["est"], r["gt"])
+    print(f"half: {len(frames)} ticks, light_half_res, {_ms_line(r)}; half-res light ticks {halves}, keyframes "
+          f"{r['keyframes']}, ATE {ate * 100:.3f} cm (the slice's {reuse['ate'] * 100:.3f}); upload_stats "
+          f"{json.dumps(engine.upload_stats)}; launch counts {json.dumps(r['counts'])}")
+    if not halves > 0 or not ate < 0.05:
+        failures.append(f"half: {halves} half-res light ticks, ATE {ate:.4f} m")
+    for k, n in _check_counts("half", r, reuse["klt_levels"], failures, kernels).items():
+        launches[k] += n
+    engine.shutdown()
+
+    engine = TorchSlamEngine(params=dict(max_keypoints=reuse["max_keypoints"]), device=dev, seed=SEED, **DEPLOYED_MODES)
+    engine.initialize(reuse["calibration"], config)
+    ctl = engine._light_ctl
+    ctl.pace_override = True
+    degraded_at, emas = [None], []
+    step = engine._light_ctl.on_tick
+
+    def on_tick(busy_s, frame_ts, now_wall):
+        step(busy_s, frame_ts, now_wall)
+        emas.append(ctl._busy_ema)
+        if ctl.half_active and degraded_at[0] is None:
+            degraded_at[0] = len(emas) - 1
+
+    ctl.on_tick = on_tick
+    r = _drive(engine, frames, traj, dev)
+    ate = ate_rmse(r["est"], r["gt"])
+    print(f"half: adaptive (deployed engine, pace_override), {_ms_line(r)}; degraded on call {degraded_at[0]} "
+          f"(budget {1e3 * ctl.budget_s:.1f} ms, degrade above {0.92e3 * ctl.budget_s:.1f} ms); busy EMA by call "
+          f"{json.dumps([round(1e3 * e, 3) for e in emas])} ms; half-res light ticks "
+          f"{sum(e['half'] and e['light'] for e in r['log'])}, ATE {ate * 100:.3f} cm; upload_stats "
+          f"{json.dumps(engine.upload_stats)}")
+    for k, n in _check_counts("half (adaptive)", r, reuse["klt_levels"], failures, kernels).items():
+        launches[k] += n
+    engine.shutdown()
+    if failures:
+        raise AssertionError("half phase: " + "; ".join(failures))
+    return launches
+
+
+_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def sync_calls_by_tick_type(dev, inputs: dict) -> dict:
+    """Synchronizing runtime calls of the deployed engine by tick type (the
+    ``--tick-launches`` recipe): SYNC_PROFILE_TICKS calls after warm-up
+    under torch.profiler, each call and each ``track_step`` in a named
+    range; the calls that stop the host (cudaStreamSynchronize,
+    cudaDeviceSynchronize, cudaEventSynchronize) counted inside each.
+    A call's tick type is that of the tick it dispatched: light, full
+    (no keyframe) or keyframe; the call also finalizes the tick before."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from thor_slam_tpu_torch.engine import tracker as trk
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+    from thor_slam_tpu_torch.slam.interface import SlamConfig
+
+    engine = TorchSlamEngine(params=dict(max_keypoints=inputs["max_keypoints"], **FULL_PARAMS), device=dev, seed=SEED,
+                             **FULL_ENGINE_ARGS, **DEPLOYED_MODES)
+    engine.initialize(inputs["calibration"], SlamConfig(num_cameras=2 * inputs["num_cams"]))
+    frames = inputs["frames"][: WARMUP_TICKS + SYNC_PROFILE_TICKS]
+    for fs in frames[:WARMUP_TICKS]:
+        engine.process_frames(fs)
+    kinds = []
+    step = trk.track_step
+
+    def ranged_step(*args, **kwargs):
+        with record_function("phase:track_step"):
+            state, out = step(*args, **kwargs)
+        kinds.append("light" if not kwargs.get("allow_refresh", True) else "keyframe" if out.refreshed_host else "full")
+        return state, out
+
+    trk.track_step = ranged_step
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fs in frames[WARMUP_TICKS:]:
+                with record_function("phase:call"):
+                    engine.process_frames(fs)
+    finally:
+        trk.track_step = step
+    engine.flush()
+    engine.shutdown()
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = {name: sorted((e.time_range.start, e.time_range.end) for e in host if e.name == f"phase:{name}")
+             for name in ("call", "track_step")}
+    stamps = np.sort(np.asarray([e.time_range.start for e in host if e.name in _SYNC_CALLS], np.float64))
+
+    def inside(span):
+        return int(np.searchsorted(stamps, span[1], "right") - np.searchsorted(stamps, span[0], "left"))
+
+    if len(spans["call"]) != SYNC_PROFILE_TICKS or len(kinds) != SYNC_PROFILE_TICKS:
+        raise AssertionError(f"{len(spans['call'])} call ranges and {len(kinds)} steps, not {SYNC_PROFILE_TICKS}")
+    rows: dict[str, list] = {}
+    for kind, call in zip(kinds, spans["call"]):
+        steps = [s for s in spans["track_step"] if call[0] <= s[0] <= call[1]]
+        rows.setdefault(kind, []).append((inside(call), sum(inside(s) for s in steps)))
+    out = {
+        kind: dict(n=len(v), per_call=statistics.median(a for a, _ in v), in_track_step=statistics.median(b for _, b in v),
+                   per_call_max=max(a for a, _ in v))
+        for kind, v in sorted(rows.items())
+    }
+    print(f"deployed: synchronizing runtime calls by tick type (medians over {SYNC_PROFILE_TICKS} profiled calls; "
+          f"{', '.join(_SYNC_CALLS)}): {json.dumps(out)}")
+    return out
 
 
 #: Runtime calls that put work on the device, as torch.profiler names them.
@@ -1353,7 +1747,7 @@ def tick_launches(dev, width=640, height=400, max_keypoints=512) -> dict:
     config = SlamConfig(num_cameras=8, enable_loop_closure=False)
 
     def engine_after_warmup():
-        engine = TorchSlamEngine(params=dict(max_keypoints=params.max_keypoints), device=dev, seed=SEED)
+        engine = TorchSlamEngine(params=dict(max_keypoints=params.max_keypoints), device=dev, seed=SEED, **PR6_MODES)
         engine.initialize(calibration, config)
         for fs in frames[:WARMUP_TICKS]:
             engine.process_frames(fs)
@@ -1481,8 +1875,9 @@ def main() -> int:
         return 0
     if "--engine-only" in sys.argv[1:]:
         # The full-engine phase alone (see the module docstring): no result line.
-        check_full_engine(run_full_engine(dev))
+        check_full_engine(run_full_engine(dev, render_full_inputs(), **PR6_MODES))
         return 0
+    t_kernels = time.perf_counter()
     patch = check_patch_gather(patches_cuda, dev)
     fast = check_fast(fast_cuda, dev)
     if "--fast-phases" in sys.argv[1:]:
@@ -1494,24 +1889,59 @@ def main() -> int:
         print(json.dumps({"kernel_times": dict(patch_gather=patch, fast9_nms=fast, sgm_scan=scan,
                                                 sgm_winner_lr=winner)}))
         return 0
+    print(f"kernel phase took {time.perf_counter() - t_kernels:.1f} s")
     torch.cuda.empty_cache()
     workers = min(RENDER_WORKERS, max(1, (os.cpu_count() or 2) - 2))
     pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
     try:
+        t0 = time.perf_counter()
         launches, periods, reuse = run_slice(dev, scan["launches_per_call"], pool)
+        print(f"slice phase took {time.perf_counter() - t0:.1f} s")
         per_period = {name: n / periods for name, n in launches.items()}  # a period: RGBD_EVERY ticks
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        full = check_full_engine(run_full_engine(dev, pool=pool))
+        inputs = render_full_inputs(pool=pool)
+        full_run = run_full_engine(dev, inputs, **PR6_MODES)
+        full = check_full_engine(full_run)
         print(f"engine: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(full)}")
+        phases = {"engine": full}
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        mono = run_mono_phases(dev, reuse, render_mono_inputs(pool=pool))
-        print(f"mono phases took {time.perf_counter() - t0:.1f} s ({workers} render workers), launches {json.dumps(mono)}")
+        deployed_run = run_full_engine(dev, inputs, label="deployed", stage_solves=False, **DEPLOYED_MODES)
+        phases["deployed"] = check_full_engine(deployed_run, label="deployed", want_light=True)
+        t1 = time.perf_counter()
+        syncs = sync_calls_by_tick_type(dev, inputs)
+        print(f"deployed: the profiled calls took {time.perf_counter() - t1:.1f} s")
+        print(f"deployed: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['deployed'])}")
+        t0 = time.perf_counter()
+        phases["deep"] = run_deep(dev, inputs, reuse)
+        print(f"deep: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['deep'])}")
+        del inputs
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phases["mono"] = run_mono_phases(dev, reuse, render_mono_inputs(pool=pool))
+        print(f"mono phases took {time.perf_counter() - t0:.1f} s ({workers} render workers), "
+              f"launches {json.dumps(phases['mono'])}")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    for name, n in list(full.items()) + list(mono.items()):
-        launches[name] += n
+    t0 = time.perf_counter()
+    phases["defer_sync"] = run_defer_sync(dev, reuse)
+    phases["half"] = run_half(dev, reuse)
+    print(f"defer_sync and half phases took {time.perf_counter() - t0:.1f} s")
+    print("modes: " + json.dumps(dict(
+        synchronous_ms_per_call=statistics.median(full_run["tick_ms"]),
+        synchronous_ms_per_tick_over_run=1e3 * full_run["run_s"] / len(full_run["tick_ms"]),
+        deployed_ms_per_call=statistics.median(deployed_run["tick_ms"]),
+        deployed_ms_per_call_p95=float(np.percentile(deployed_run["tick_ms"], 95)),
+        deployed_ms_per_tick_over_run=1e3 * deployed_run["run_s"] / len(deployed_run["tick_ms"]),
+        deployed_light_share=sum(deployed_run["light"]) / len(deployed_run["light"]),
+        deployed_half_share=sum(deployed_run["half"]) / len(deployed_run["half"]),
+        deployed_paced_calls=deployed_run["paced_calls"],
+        sync_calls_by_tick_type=syncs,
+    )))
+    for counts in phases.values():
+        for name, n in counts.items():
+            launches[name] += n
 
     foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "thor_slam_tpu")]
     if foreign:

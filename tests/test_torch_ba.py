@@ -223,14 +223,16 @@ def recorded():
     with CameraRig(sources, rig_extrinsics=rig_ext) as rig:
         cal = rig.calibration
         frames = [rig.get_synchronized_frames() for _ in range(40)]
-    engine = TorchSlamEngine(params=dict(max_keypoints=128, keyframe_min_inliers=40), use_imu=False, device="cpu")
+    engine = TorchSlamEngine(
+        params=dict(max_keypoints=128, keyframe_min_inliers=40), use_imu=False, light_ticks=False, device="cpu"
+    )
     engine.initialize(cal, SlamConfig(num_cameras=4, enable_loop_closure=False))
     events = []
     ba_obj = engine._ba
     push, clear, run = ba_obj.push_tick, ba_obj.clear, ba_obj.run
 
     def rec_push(ba_obs, world_t_body, ts, refreshed):
-        events.append(("push", ba_obs.numpy().copy(), world_t_body.copy(), ts, refreshed))
+        events.append(("push", np.array(ba_obs), world_t_body.copy(), ts, refreshed))
         return push(ba_obs, world_t_body, ts, refreshed)
 
     def rec_clear():

@@ -444,3 +444,67 @@ def test_rgbd_product_on_the_card_through_the_kernels(cuda_device):
     # reciprocal, so a depth can move by one millimetre.
     assert (on_card.depth_mm == on_cpu.depth_mm).mean() >= 0.99
     assert (on_card.depth_mm > 0).mean() > 0.2
+
+
+# ------------------------------------------------ pipelined ticks on the card
+
+
+def _stage_into(item, alloc):
+    """An uploader stage function: copy ``item`` into the slot's buffer."""
+    out = alloc(item.shape, item.dtype)
+    out[...] = item
+    return out
+
+
+@pytest.mark.cuda
+def test_uploader_ring_delivers_every_tick_at_depth_four(cuda_device):
+    """8 distinct (C, 2, H, W) uint8 ticks through a ring of 5 pinned slots
+    with 4 ticks in flight, the copy stream held back so that a slot is
+    wanted again while its copy is still queued: each tick arrives on the
+    device equal to its host array (a buffer overwritten before its copy
+    would hand the device another tick's frame)."""
+    from thor_slam_tpu_torch.pipeline.transfer import DoubleBufferedUploader
+
+    rng = np.random.default_rng(9)
+    ticks = [rng.integers(0, 256, (4, 2, 400, 640), dtype=np.uint8) for _ in range(8)]
+    up = DoubleBufferedUploader(_stage_into, cuda_device, slots=5)
+    try:
+        with torch.cuda.stream(up._copy_stream):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the copy stream's time
+        got = []
+        for k, tick in enumerate(ticks):
+            up.submit(tick)
+            got.append(up.get())
+            if k >= 4:  # a consumer 4 ticks behind reads the oldest
+                assert torch.equal(got[k - 4].cpu(), torch.from_numpy(ticks[k - 4]))
+        torch.cuda.synchronize()
+        for tick, dev in zip(ticks, got):
+            assert dev.device.type == "cuda" and torch.equal(dev.cpu(), torch.from_numpy(tick))
+    finally:
+        up.close()
+
+
+@pytest.mark.cuda
+def test_record_is_ready_only_after_its_pinned_copy_holds_the_tick(cuda_device):
+    """The engine's record event: queried while the device is still busy
+    it reports not ready; once it reports ready, the pinned copies hold the
+    tick's values."""
+    from thor_slam_tpu_torch.engine.pipeline_exec import record_ready
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+
+    engine = TorchSlamEngine(device=cuda_device)
+    engine._device = cuda_device
+    x = torch.arange(57, dtype=torch.float32, device=cuda_device)
+    torch.cuda._sleep(200_000_000)  # the stream is busy for ~0.1 s
+    packed = x * 2.0
+    ba_obs = torch.full((2, 8, 10), 3.0, device=cuda_device)
+    rec = {"packed": packed, "ba_obs": ba_obs, "kf_sig": None, "event": None}
+    engine._start_fetch(rec)
+    assert rec["packed"].is_pinned() and rec["ba_obs"].is_pinned()
+    assert not record_ready(rec)
+    while not record_ready(rec):
+        pass
+    assert torch.equal(rec["packed"], (x * 2.0).cpu()) and bool((rec["ba_obs"] == 3.0).all())
+    engine._fetch_records([rec])
+    assert rec["event"] is None and isinstance(rec["packed"], np.ndarray)
+    np.testing.assert_array_equal(rec["packed"], np.arange(57, dtype=np.float32) * 2.0)

@@ -68,7 +68,7 @@ def runs():
     )
     patches_cuda.reset_counts()
     fast_cuda.reset_counts()
-    port = TorchSlamEngine(params=PARAMS, device="cpu", enable_ba=False, use_imu=False)
+    port = TorchSlamEngine(params=PARAMS, device="cpu", enable_ba=False, use_imu=False, light_ticks=False)
     out = dict(ref=_run(ref, frames, calibration, traj), port=_run(port, frames, calibration, traj))
     out["counts"] = (dict(patches_cuda.counts), dict(fast_cuda.counts))
     out["engine"] = port
@@ -133,9 +133,21 @@ def test_reset_and_shutdown(runs):
 
 
 @pytest.mark.parametrize("kwargs", [dict(pipelined=True), dict(light_ticks=True), dict(devices=2)])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        TorchSlamEngine(device="cpu", **kwargs)
+def test_unported_options_raise(runs, kwargs):
+    """Pipelined mode and light ticks are ported: the engine constructs and
+    tracks 3 ticks. More than one device still raises."""
+    if "devices" in kwargs:
+        with pytest.raises(NotImplementedError):
+            TorchSlamEngine(device="cpu", **kwargs)
+        return
+    engine = TorchSlamEngine(params=PARAMS, device="cpu", adaptive_half_res=False, **kwargs)
+    engine.initialize(runs["calibration"], SlamConfig(num_cameras=4, enable_loop_closure=False))
+    returned = [engine.process_frames(fs) for fs in runs["frames"][:3]]
+    tail = engine.flush()
+    poses = [p for p in returned + [tail] if p is not None]
+    assert len(poses) == 3 and all(np.isfinite(p.position).all() for p in poses)
+    assert engine.upload_stats["full"] + engine.upload_stats["light"] == 3
+    engine.shutdown()
 
 
 @pytest.mark.parametrize("option", ["enable_ba", "use_imu"])
@@ -143,7 +155,7 @@ def test_backend_options_run(runs, option):
     """BA and IMU fusion are ported: each runs alone on the VO frames."""
     flags = dict(enable_ba=False, use_imu=False)
     flags[option] = True
-    engine = TorchSlamEngine(params=PARAMS, device="cpu", **flags)
+    engine = TorchSlamEngine(params=PARAMS, device="cpu", light_ticks=False, **flags)
     engine.initialize(runs["calibration"], SlamConfig(num_cameras=4, enable_loop_closure=False))
     for fs in runs["frames"][:8]:
         assert engine.process_frames(fs) is not None
@@ -182,7 +194,7 @@ def test_mono_source_raises():
 
 def test_loop_closure_runs(runs):
     """Loop closure is on by default: keyframes enter the place DB."""
-    engine = TorchSlamEngine(params=PARAMS, device="cpu", enable_ba=False, use_imu=False)
+    engine = TorchSlamEngine(params=PARAMS, device="cpu", enable_ba=False, use_imu=False, light_ticks=False)
     engine.initialize(runs["calibration"], SlamConfig())
     assert engine._config.enable_loop_closure
     for fs in runs["frames"]:

@@ -2,8 +2,8 @@
 
 Both engines run bundle adjustment, IMU fusion with the accelerometer term
 and loop closure (their defaults) over the same 70 rendered ticks of a
-2-camera stereo rig at 160x120 with an IMU on source 0. The reference's
-light ticks (not ported, ROADMAP Queue 1 #12) are off. Bars: both ATEs
+2-camera stereo rig at 160x120 with an IMU on source 0. Light ticks are
+off in both (tests/test_torch_light.py holds them against each other). Bars: both ATEs
 under 5 cm and within 1 cm of each other (RANSAC draws differ), BA solved
 at least twice in both, the two gravity estimates within 5 degrees.
 
@@ -77,7 +77,7 @@ def runs(tmp_path_factory):
         calibration = rig.calibration
         frames = [rig.get_synchronized_frames() for _ in range(TICKS)]
     ref = TpuSlamEngine(params=PARAMS, light_ticks=False, adaptive_half_res=False, **ENGINE_ARGS)
-    port = TorchSlamEngine(params=PARAMS, device="cpu", **ENGINE_ARGS)
+    port = TorchSlamEngine(params=PARAMS, device="cpu", light_ticks=False, **ENGINE_ARGS)
     out = dict(ref=_run(ref, frames, calibration), port=_run(port, frames, calibration))
     tmp = tmp_path_factory.mktemp("maps")
     out["ref_map"], out["port_map"] = str(tmp / "ref_map"), str(tmp / "port_map")
@@ -91,10 +91,19 @@ def test_defaults_match_the_reference():
 
     ref = inspect.signature(TpuSlamEngine.__init__).parameters
     port = inspect.signature(TorchSlamEngine.__init__).parameters
-    shared = [n for n in port if n in ref and n not in ("self", "light_ticks")]
-    assert len(shared) >= 22
+    shared = [n for n in ref if n not in ("self", "devices")]
+    assert len(shared) == 29
     for name in shared:
+        assert name in port, name
         assert port[name].default == ref[name].default, name
+    # None resolves as the reference's does: light ticks (and the adaptive
+    # controller) on for one device.
+    sources, rig_ext, _, _ = make_synthetic_rig(SyntheticRigSpec(num_sources=1, stereo=True, width=64, height=48),
+                                                render=False)
+    engine = TorchSlamEngine(device="cpu")
+    engine.initialize(CameraRig(sources, rig_extrinsics=rig_ext).calibration, SlamConfig(num_cameras=2))
+    assert engine._light_ctl.light and engine._light_ctl.adaptive and not engine._pipelined
+    engine.shutdown()
 
 
 def test_ate_under_bar_and_close_to_reference(runs):

@@ -1,11 +1,14 @@
 """The port's own host layer against the JAX package's framework-free modules.
 
 ``thor_slam_tpu_torch`` keeps copies of ``geometry``, ``camera.types``,
-``camera.rig``, ``camera.sources.synthetic``, ``slam.interface`` and
-``utils.evaluation``, so that it imports nothing of the JAX package. These
-tests hold each copy to the module it copies on the same seeded inputs
-(all exact: the copies run the same numpy code), and guard that no module
-of the port, nor ``chip_smoke.py``, loads JAX or the JAX package.
+``camera.rig``, ``camera.sources.synthetic``, ``slam.interface``,
+``utils.evaluation``, ``engine.backends.light`` and
+``engine.pipeline_exec``, so that it imports nothing of the JAX package.
+These tests hold each copy to the module it copies on the same seeded
+inputs (all exact: the copies run the same numpy code; the light module's
+code is the original's, line for line; the pipeline executor asks a
+record's event, not its device array, whether it is ready), and guard that
+no module of the port, nor ``chip_smoke.py``, loads JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -20,11 +23,15 @@ import pytest
 from thor_slam_tpu import geometry as jgeom
 from thor_slam_tpu.camera.rig import CameraRig as JaxCameraRig
 from thor_slam_tpu.camera.sources import synthetic as jsyn
+from thor_slam_tpu.engine import pipeline_exec as jpipe
+from thor_slam_tpu.engine.backends import light as jlight
 from thor_slam_tpu.slam import interface as jiface
 from thor_slam_tpu.utils import evaluation as jeval
 from thor_slam_tpu_torch import geometry as tgeom
 from thor_slam_tpu_torch.camera.rig import CameraRig as PortCameraRig
 from thor_slam_tpu_torch.camera.sources import synthetic as tsyn
+from thor_slam_tpu_torch.engine import pipeline_exec as tpipe
+from thor_slam_tpu_torch.engine.backends import light as tlight
 from thor_slam_tpu_torch.slam import interface as tiface
 from thor_slam_tpu_torch.utils import evaluation as teval
 
@@ -202,6 +209,71 @@ def test_slam_interface_types_match_reference():
     np.testing.assert_array_equal(a.to_4x4_matrix(), b.to_4x4_matrix())
     np.testing.assert_array_equal(a.position, b.position)
     assert tiface.SlamConfig().__dict__.keys() == jiface.SlamConfig().__dict__.keys()
+
+
+@pytest.mark.parametrize("name", ["downsample2_host", "LightController"])
+def test_light_module_is_the_reference_code(name):
+    """The port's light module carries the original's code unchanged
+    (tests/test_torch_light.py runs both on the same series)."""
+    import inspect
+
+    assert inspect.getsource(getattr(tlight, name)) == inspect.getsource(getattr(jlight, name))
+
+
+class _Scripted:
+    """Readiness read from a shared script: ``is_ready()`` as the
+    reference asks a device array, ``query()`` as the port asks an event."""
+
+    def __init__(self, ready: set, i: int) -> None:
+        self._ready, self._i = ready, i
+
+    def is_ready(self) -> bool:
+        return self._i in self._ready
+
+    query = is_ready
+
+
+# (depth, defer_sync, steps): "s" submits the next record, "f" finalizes the
+# ready batch (when at depth), "r<k>" marks record k ready, "d" drains.
+EXECUTOR_SCRIPTS = [
+    (1, False, "s f s r2 r3 s s f s d"),
+    (3, False, "s s s r1 f s r3 r4 f s s r5 r6 r7 f f d"),
+    (2, False, "r0 r1 r2 r3 s s f s f s f s d"),
+    (4, True, "s s s s s r0 f s d"),
+    (3, False, "s s s r2 f r1 f s s f d"),
+]
+
+
+@pytest.mark.parametrize("depth,defer,script", EXECUTOR_SCRIPTS)
+def test_pipeline_executor_matches_reference(depth, defer, script):
+    """The same fetch batches, finalize order and returned poses as the
+    reference's executor over one script of submits, readiness changes,
+    finalizes and a drain."""
+    logs = []
+    for mod in (jpipe, tpipe):
+        ready: set = set()
+        log: list = []
+        ex = mod.PipelineExecutor(
+            depth, defer,
+            fetch=lambda recs, log=log: log.append(("fetch", [r["i"] for r in recs])),
+            finalize=lambda rec, log=log: log.append(("fin", rec["i"])) or f"pose{rec['i']}",
+        )
+        n = 0
+        for step in script.split():
+            if step == "s":
+                token = _Scripted(ready, n)
+                ex.submit({"i": n, "packed": token, "event": token})
+                n += 1
+            elif step == "f":
+                if ex.at_depth:
+                    log.append(("pose", ex.finalize_ready()))
+            elif step == "d":
+                log.append(("drain", ex.drain(), len(ex)))
+            else:
+                ready.add(int(step[1:]))
+        logs.append(log)
+    assert logs[0] == logs[1]
+    assert any(e[0] == "fetch" and len(e[1]) > 1 for e in logs[1])  # some fetch batched
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():

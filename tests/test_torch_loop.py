@@ -200,7 +200,7 @@ def loop_run():
     sources, rig_ext, _, _ = make_synthetic_rig(spec, world=SyntheticWorld(half_extents=(4.0, 4.0, 2.0)), trajectory=traj)
     engine = TorchSlamEngine(
         params=dict(max_keypoints=256, keyframe_min_inliers=40, keyframe_max_translation=0.3, keyframe_max_rotation=0.35),
-        enable_ba=False, use_imu=False, device="cpu", **LOOP_ARGS,
+        enable_ba=False, use_imu=False, light_ticks=False, device="cpu", **LOOP_ARGS,
     )
     calls = []
     hook = engine._loop.on_keyframe

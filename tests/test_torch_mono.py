@@ -136,7 +136,7 @@ def _run(engine, frames, calibration, traj, num_cameras):
 def _pair(layout, seed, ticks, params, num_cameras, w=W, h=H, **flags):
     cal, frames, traj = _frames(layout, seed, ticks + 1, w, h)
     ref = TpuSlamEngine(params=params, use_imu=False, pipelined=False, light_ticks=False, adaptive_half_res=False, **flags)
-    port = TorchSlamEngine(params=params, device="cpu", use_imu=False, **flags)
+    port = TorchSlamEngine(params=params, device="cpu", use_imu=False, light_ticks=False, **flags)
     out = dict(
         ref=_run(ref, frames[:ticks], cal, traj, num_cameras),
         port=_run(port, frames[:ticks], cal, traj, num_cameras),
@@ -320,7 +320,7 @@ def test_all_mono_bootstrap_rearms_when_the_landmarks_are_lost(mono):
         for source_frames in fs.frame_sets.values():
             for f in source_frames.frames:
                 f.image = np.zeros_like(f.image)
-    port = TorchSlamEngine(params=MONO_PARAMS, device="cpu", use_imu=False)
+    port = TorchSlamEngine(params=MONO_PARAMS, device="cpu", use_imu=False, light_ticks=False)
     port.initialize(cal, SlamConfig(num_cameras=1, enable_loop_closure=False))
     done = []
     for fs in frames:

@@ -1,28 +1,45 @@
 """TorchSlamEngine: the SlamEngine backed by the PyTorch/CUDA tracker.
 
-Synchronous multi-camera SLAM, the reference ``TpuSlamEngine``'s
-single-device, unpipelined mode with its default backends, on stereo,
-mixed (stereo + mono) and all-mono rigs. Each :meth:`process_frames`
+Multi-camera SLAM on one device, with the reference ``TpuSlamEngine``'s
+backends and modes, on stereo, mixed (stereo + mono) and all-mono rigs.
+Each :meth:`process_frames`
 
-1. attempts relocalization when it is armed (rate-limited);
-2. ingests the tick's IMU samples and predicts the pose
-   (:class:`~thor_slam_tpu_torch.engine.backends.ImuFusion`);
-3. stages the rig tick, copies it to the device and runs one
-   :func:`tracker.track_step` seeded with that prediction; on an all-mono
-   rig that has no map yet it then attempts the two-view bootstrap
+1. asks the light-tick scheduler (:class:`~thor_slam_tpu_torch.engine.
+   backends.LightController`) whether this tick ships the left images
+   only, and at half resolution;
+2. stages the tick (:func:`staging.stage_images`) and copies it to the
+   device: at once when synchronous; when ``pipelined``, on the uploader's
+   worker thread through pinned buffers and a copy stream
+   (:class:`~thor_slam_tpu_torch.pipeline.transfer.DoubleBufferedUploader`)
+   while the oldest in-flight tick is finalized;
+3. dispatches the tick (:meth:`_dispatch_tick`): a relocalization attempt
+   when armed (rate-limited; every in-flight tick is finalized first), the
+   IMU prediction (:class:`~thor_slam_tpu_torch.engine.backends.
+   ImuFusion`), one :func:`tracker.track_step`, the packing of its fresh
+   outputs and their device-to-host copies into pinned memory behind one
+   event; on an all-mono rig without a map, the two-view bootstrap
    (:func:`tracker.mono_init`, every other tick, one 4-float readback an
    attempt);
-4. runs the host state machine of the reference's ``_finalize_values`` on
-   the fetched outputs: held-pose covariance growth, the IMU shadow, the
-   TrackingState machine, track-level bundle adjustment at keyframes
-   (:class:`~thor_slam_tpu_torch.engine.backends.TrackBA`, corrections
-   written into the live state), and the keyframe hook of loop closure
-   (:class:`~thor_slam_tpu_torch.engine.backends.LoopBackend`, whose
-   corrections compose into :attr:`map_t_odom`).
+4. finalizes ticks (:meth:`_finalize_values`, the reference's
+   ``_finalize_values``) in dispatch order: the correction-epoch lift of a
+   tick dispatched before a BA correction, held-pose covariance growth,
+   the IMU shadow, the TrackingState machine, track-level bundle
+   adjustment at keyframes (:class:`~thor_slam_tpu_torch.engine.backends.
+   TrackBA`, corrections written into the newest live state), the keyframe
+   hook of loop closure (:class:`~thor_slam_tpu_torch.engine.backends.
+   LoopBackend`, whose corrections compose into :attr:`map_t_odom`).
 
-Every tick finalizes before the next is dispatched, so the reference's
-correction-epoch lift of in-flight ticks has nothing to do here. Map
-save/load, state checkpoints and relocalization live in
+Synchronous, a tick finalizes within its own call. Pipelined, the
+in-flight records live in a :class:`~thor_slam_tpu_torch.engine.
+pipeline_exec.PipelineExecutor`: ``process_frames`` returns the pose of the
+tick ``pipeline_depth`` calls back (None while the pipeline fills) and
+:meth:`flush` the last one; under ``defer_sync`` nothing is finalized
+until :meth:`flush`, which replays the whole stream
+(:attr:`last_flush_poses`). Every tick still waits for the device inside
+``track_step`` on small copies of constants from pageable memory, and a
+full tick once more on its keyframe flag, so the pipeline does not yet run
+ahead of the device (ROADMAP Queue 1 #18).
+Map save/load, state checkpoints and relocalization live in
 :mod:`~thor_slam_tpu_torch.engine.persistence`.
 
 An all-mono rig's odometry is up to scale (the bootstrap fixes a unit
@@ -30,12 +47,13 @@ translation between its two views), so the metric subsystems are switched
 off for it at :meth:`initialize`: window BA, and the accelerometer term of
 the IMU prediction (the gyro's rotation prediction stays).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): pipelined mode, light ticks and multi-device tracking.
+Not ported yet: tracking over more than one device (``devices`` > 1
+raises ``NotImplementedError``, ROADMAP Queue 1 #15).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 
@@ -55,22 +73,29 @@ from thor_slam_tpu_torch.slam.interface import (
 )
 from thor_slam_tpu_torch.engine import convert, persistence, staging
 from thor_slam_tpu_torch.engine import tracker as trk
-from thor_slam_tpu_torch.engine.backends import ImuFusion, LoopBackend, TrackBA
+from thor_slam_tpu_torch.engine.backends import ImuFusion, LightController, LoopBackend, TrackBA
 from thor_slam_tpu_torch.engine.backends.imu_fusion import IMU_NOISE_KEYS
+from thor_slam_tpu_torch.engine.pipeline_exec import PipelineExecutor
 from thor_slam_tpu_torch.engine.setup import build_camera_setup
+from thor_slam_tpu_torch.pipeline.transfer import DoubleBufferedUploader
 from thor_slam_tpu_torch.utils import cuda_lib
 from thor_slam_tpu_torch.utils.platform import pin_precision, select_device
 
 logger = logging.getLogger(__name__)
 
 
+def _empty_upload_stats() -> dict:
+    return {"full": 0, "light": 0, "light_half": 0, "bytes": 0}
+
+
 class TorchSlamEngine(SlamEngine):
     """Multi-camera SLAM on a CUDA device.
 
-    The backend arguments and their defaults are the reference's
-    (``TpuSlamEngine``): bundle adjustment, IMU fusion with the
-    accelerometer term, and auto-relocalization are on; loop closure
-    follows ``SlamConfig.enable_loop_closure`` (on by default).
+    The arguments and their defaults are the reference's
+    (``TpuSlamEngine``), ``devices`` > 1 aside: bundle adjustment, IMU
+    fusion with the accelerometer term, auto-relocalization, light ticks
+    (one device) and the adaptive half-resolution controller are on; loop
+    closure follows ``SlamConfig.enable_loop_closure`` (on by default).
 
     Args:
         params: Tracker parameter overrides (fields of
@@ -91,6 +116,38 @@ class TorchSlamEngine(SlamEngine):
         loop_exclude_recent, loop_cooldown_kfs, loop_min_correction_m,
         loop_noise_gate_sigma: Loop-closure parameters
             (:class:`LoopBackend`); the noise gate also gates BA.
+        prewarm_degraded: The reference compiles its step's masked-camera
+            variant at ``initialize``. Nothing is compiled per variant here:
+            it runs the ``cam_active`` path once, on a throwaway state, at
+            ``initialize``.
+        pipelined: Overlap staging, upload and finalize with device compute:
+            ``process_frames(k)`` returns the pose of tick k - depth (None
+            while the pipeline fills); :meth:`flush` returns the last.
+        pipeline_depth: In-flight ticks when ``pipelined`` (>= 1). Every
+            backend runs at any depth: each consumes finalized ticks only,
+            and a tick dispatched before a BA correction is lifted into
+            the corrected frame at its finalize.
+        defer_sync: Dataset replay (needs ``pipelined``; BA and the IMU
+            off): nothing is finalized until :meth:`flush`, which replays
+            the stream; ``process_frames`` returns None and
+            :attr:`last_flush_poses` holds every tick's pose. Loop closure
+            is switched off (it needs finalized keyframes mid-stream).
+        devices: Tracking over more than one device is not ported yet
+            (ROADMAP Queue 1 #15): anything but None or 1 raises
+            ``NotImplementedError``. (The reference refuses a mono source
+            on more than one device; here that refusal is this one.)
+        light_ticks: Ship the left images only on ticks the host predicts
+            will not keyframe (:class:`LightController`); None means on
+            for one device unless ``defer_sync``.
+        light_max_interval: A full tick at least every N ticks.
+        light_half_res: Light ticks ship 2x2-mean half-resolution images,
+            upsampled on the device (needs even frame dimensions).
+        adaptive_half_res: Degrade light ticks to half resolution while the
+            busy time per tick stays over the camera period on a stream
+            paced in real time, and restore with hysteresis. None means on.
+            (The reference's None also reads an environment variable that
+            spares its CPU test suite a second compile; nothing is compiled
+            here, so no variable is read.)
         auto_relocalize: On LOST with a loaded map, arm relocalization.
         reloc_attempt_interval: While armed, attempt every N ticks.
         imu_noise: Noise-model overrides for :class:`ImuFusion`.
@@ -98,11 +155,6 @@ class TorchSlamEngine(SlamEngine):
             raises without one). ``"cpu"`` runs the plain PyTorch versions
             of the kernels.
         seed: Seed of the tracker's RANSAC ``torch.Generator``.
-        pipelined, light_ticks, devices: Reference modes not ported yet;
-            pipelined/light ticks (ROADMAP Queue 1 #12) and more than one
-            device (#15) raise ``NotImplementedError``. (The reference
-            refuses a mono source on more than one device; here that
-            refusal is the one of ``devices`` itself.)
     """
 
     def __init__(
@@ -125,21 +177,34 @@ class TorchSlamEngine(SlamEngine):
         loop_cooldown_kfs: int = 20,
         loop_min_correction_m: float = 0.05,
         loop_noise_gate_sigma: float = 3.0,
+        prewarm_degraded: bool = False,
+        pipelined: bool = False,
+        pipeline_depth: int = 1,
+        defer_sync: bool = False,
+        devices: int | None = None,
+        light_ticks: bool | None = None,
+        light_max_interval: int = 4,
+        light_half_res: bool = False,
+        adaptive_half_res: bool | None = None,
         auto_relocalize: bool = True,
         reloc_attempt_interval: int = 3,
         imu_noise: dict | None = None,
         device: str | torch.device | None = None,
         seed: int = 0,
-        pipelined: bool = False,
-        light_ticks: bool | None = None,
-        devices: int | None = None,
     ) -> None:
-        if pipelined:
-            raise NotImplementedError("pipelined: pipelined mode (ROADMAP Queue 1 #12) is not ported yet")
-        if light_ticks:
-            raise NotImplementedError("light_ticks: light ticks (ROADMAP Queue 1 #12) are not ported yet")
         if devices not in (None, 1):
             raise NotImplementedError("devices > 1: multi-GPU tracking (ROADMAP Queue 1 #15)")
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if defer_sync and not pipelined:
+            raise ValueError("defer_sync requires pipelined=True")
+        if defer_sync:
+            # Nothing finalizes mid-stream, so no backend that consumes
+            # finalized ticks (the IMU shadow, the BA window) can run.
+            if enable_ba:
+                raise ValueError("defer_sync is incompatible with enable_ba")
+            if use_imu:
+                raise ValueError("defer_sync is incompatible with use_imu")
         if imu_noise and not set(imu_noise) <= IMU_NOISE_KEYS:
             raise ValueError(
                 f"unknown imu_noise keys {sorted(set(imu_noise) - IMU_NOISE_KEYS)}; "
@@ -150,6 +215,18 @@ class TorchSlamEngine(SlamEngine):
         self._enable_ba = enable_ba
         self._use_imu = use_imu
         self._use_accel = bool(use_accel) and use_imu
+        self._prewarm_degraded = prewarm_degraded
+        self._pipelined = pipelined
+        self._pipeline_depth = pipeline_depth
+        self._defer_sync = defer_sync
+        self._uploader: DoubleBufferedUploader | None = None
+        #: In-flight tick records. Late-bound callbacks, so shims that wrap
+        #: the engine's methods see every call.
+        self._pending_q = PipelineExecutor(
+            pipeline_depth, defer_sync,
+            fetch=lambda recs: self._fetch_records(recs),
+            finalize=lambda rec: self._finalize_values(rec),
+        )
         self._ba = TrackBA(
             window=ba_window,
             landmarks=ba_landmarks,
@@ -161,6 +238,8 @@ class TorchSlamEngine(SlamEngine):
             use_accel=self._use_accel,
             gravity_min_ticks=gravity_min_ticks,
             capacity=imu_buffer_capacity,
+            # The prediction window spans `depth` ticks of samples.
+            pred_capacity=64 * max(1, pipeline_depth),
             **(imu_noise or {}),
         )
         self._loop = LoopBackend(
@@ -171,6 +250,9 @@ class TorchSlamEngine(SlamEngine):
             cooldown_kfs=loop_cooldown_kfs,
             min_correction_m=loop_min_correction_m,
             noise_gate_sigma=loop_noise_gate_sigma,
+        )
+        self._light_ctl = LightController(
+            light_ticks, light_half_res, True if adaptive_half_res is None else adaptive_half_res, light_max_interval
         )
         self._auto_reloc = bool(auto_relocalize)
         self._reloc_interval = max(1, int(reloc_attempt_interval))
@@ -186,11 +268,19 @@ class TorchSlamEngine(SlamEngine):
         self._source_order: list[str] = []
         self._zero_img: np.ndarray | None = None
         self._all_mono = False  # resolved at initialize()
-        #: Per-tick diagnostics of the last processed tick.
+        #: Per-tick diagnostics of the last finalized tick.
         self.last_diagnostics: dict = {}
+        #: Staged ticks by class and staged image bytes since
+        #: initialize()/reset().
+        self.upload_stats: dict = _empty_upload_stats()
+        #: Per-tick poses of the last defer_sync flush, in stream order
+        #: (None where tracking was LOST).
+        self.last_flush_poses: list[SlamPose | None] = []
         self._clear_host_state()
 
     def _clear_host_state(self) -> None:
+        self._pending_q.clear()
+        self._close_uploader()
         self._keyframe_poses: list[SlamPose] = []
         self._low_inlier_streak = 0
         self._held_cov: np.ndarray | None = None
@@ -202,22 +292,35 @@ class TorchSlamEngine(SlamEngine):
         self._mono_boot_done = False
         self._mono_boot_countdown = 2  # KLT needs a couple of frames first
         self._mono_rearm_after = 0
-        self._mono_boot_attempt: dict | None = None
+        #: Host shadow of the device's keyframe pose (the light scheduler
+        #: measures the motion since it).
+        self._last_kf_odom: np.ndarray | None = None
         #: map<-odom correction accumulated by loop closures; everything the
         #: engine returns as map data is lifted through it.
         self._map_t_odom = np.eye(4)
-        #: odom-frame correction accumulated by BA (the IMU shadow's epoch,
-        #: replaced and never mutated).
+        #: odom-frame correction accumulated by BA, written into the live
+        #: state as it lands. Each record keeps the value at its dispatch
+        #: (its "corr_epoch"); replaced, never mutated.
         self._ba_corr_total = np.eye(4)
+        self.upload_stats = _empty_upload_stats()
         self._ba.clear()
         self._imu.reset()
         self._loop.reset()
+        self._light_ctl.reset()
+
+    def _close_uploader(self) -> None:
+        if self._uploader is not None:
+            self._uploader.close()
+            self._uploader = None
 
     # ------------------------------------------------------------- setup
 
     def initialize(self, calibration: RigCalibration, config: SlamConfig | None = None) -> None:
         if config is not None:
             self._config = config
+        if self._defer_sync and self._config.enable_loop_closure:
+            logger.warning("defer_sync: disabling loop closure (no mid-stream finalize)")
+            self._config = dataclasses.replace(self._config, enable_loop_closure=False)
         setup_np, self._source_order, height, width = build_camera_setup(calibration)
         if calibration.imu_extrinsics is not None:
             ext = calibration.imu_extrinsics.extrinsics
@@ -255,18 +358,30 @@ class TorchSlamEngine(SlamEngine):
         self._setup = convert.setup_to_torch(setup_np, self._device)
         self._ba.bind(self._setup, self._params.num_cams, mono_obs_weight=self._params.mono_obs_weight)
         self._loop.bind(self._setup, self._params.max_keypoints)
+        # Light-tick scheduling and the adaptive controller: the variants
+        # the reference compiles need nothing here.
+        self._light_ctl.resolve(1, self._defer_sync, height, width, getattr(self._config, "expected_fps", 0.0) or 0.0)
         # One-time solver and transform set-up here, not in a tick.
         if self._enable_ba:
             self._ba.warm()
         if self._config.enable_loop_closure:
             self._loop.warm()
         self._zero_img = np.zeros((height, width), np.uint8)
+        if self._prewarm_degraded:
+            # The masked-camera path once, on a throwaway state and draws.
+            trk.track_step(
+                self._params, self._setup, trk.init_state(self._params, self._device),
+                torch.zeros((self._params.num_cams, 2, height, width), dtype=torch.uint8, device=self._device),
+                generator=torch.Generator(device=self._device).manual_seed(self._seed),
+                cam_active=torch.ones(self._params.num_cams, dtype=torch.bool, device=self._device),
+            )
         self.reset()
         self._state_enum = TrackingState.INITIALIZING
         logger.info(
-            "TorchSlamEngine initialized: %d cams @ %dx%d on %s (BA %s, IMU %s, loop closure %s)",
-            self._params.num_cams, width, height, self._device,
-            self._enable_ba, self._use_imu, self._config.enable_loop_closure,
+            "TorchSlamEngine initialized: %d cams @ %dx%d on %s (BA %s, IMU %s, loop closure %s, "
+            "pipelined %s depth %d, light ticks %s)",
+            self._params.num_cams, width, height, self._device, self._enable_ba, self._use_imu,
+            self._config.enable_loop_closure, self._pipelined, self._pipeline_depth, self._light_ctl.light,
         )
 
     # ------------------------------------------------------------ tracking
@@ -274,98 +389,219 @@ class TorchSlamEngine(SlamEngine):
     def process_frames(self, frame_set: SynchronizedFrameSet) -> SlamPose | None:
         if self._tracker_state is None:
             raise RuntimeError("initialize() must be called before process_frames()")
+        t_in = time.perf_counter() if self._light_ctl.adaptive else None
+        light = self._schedule_light()
+        half = light and self._light_ctl.half_active
+        if not self._pipelined:
+            images = torch.from_numpy(self._stage(frame_set, light, half)).to(self._device)
+            pose = self._finalize_tick(self._dispatch_tick(images, frame_set, light, half))
+        else:
+            # Stage and upload tick k on the uploader's thread while the
+            # host finalizes the oldest in-flight tick.
+            if self._uploader is None:
+                self._uploader = DoubleBufferedUploader(
+                    lambda item, alloc: self._stage(*item, alloc=alloc), self._device,
+                    slots=self._pipeline_depth + 1,
+                )
+            self._uploader.submit((frame_set, light, half))
+            pose = None
+            if not self._defer_sync and self._pending_q.at_depth:
+                pose = self._pending_q.finalize_ready()
+            images = self._uploader.get()
+            self._pending_q.submit(self._dispatch_tick(images, frame_set, light, half))
+        if t_in is not None:
+            t_out = time.perf_counter()
+            self._light_ctl.on_tick(t_out - t_in, frame_set.timestamp, t_out)
+        return pose
+
+    def _stage(self, frame_set: SynchronizedFrameSet, light: bool, half: bool, alloc=None) -> np.ndarray:
+        return staging.stage_images(
+            frame_set, self._source_order, self._zero_img, light=light, half=half, alloc=alloc,
+            stats=self.upload_stats, controller=self._light_ctl,
+        )
+
+    def _schedule_light(self) -> bool:
+        """Light (left-only) or full tick for the next dispatch: the
+        LightController's policy over the finalized state."""
+        return self._light_ctl.schedule(
+            frame_count=self._frame_count,
+            want_reloc=self._want_reloc,
+            tracking=self._state_enum == TrackingState.TRACKING,
+            num_inliers=self.last_diagnostics.get("num_inliers", 0),
+            params=self._params,
+            fin_pose=self._imu.fin_pose,
+            last_kf_odom=self._last_kf_odom,
+        )
+
+    @property
+    def light_half_active(self) -> bool:
+        """True while light ticks ship half-res (forced or adaptive)."""
+        return bool(self._light_ctl.half_active)
+
+    #: Record keys of the tick's outputs brought to the host, in order.
+    _FETCH_KEYS = ("packed", "ba_obs", "kf_sig")
+
+    def _dispatch_tick(self, images: torch.Tensor, frame_set: SynchronizedFrameSet, light: bool, half: bool) -> dict:
+        """Front half of a tick: relocalization, IMU prediction, the step,
+        and the start of its outputs' copies to the host. Returns the
+        tick's record for :meth:`_finalize_values`."""
         if self._want_reloc:
             # Rate-limited: each attempt is a synchronous find + verify.
             if self._reloc_countdown > 0:
                 self._reloc_countdown -= 1
-            elif persistence.attempt_relocalization(self, frame_set):
-                self._want_reloc = False
-                self._reloc_countdown = 0
             else:
-                self._reloc_countdown = self._reloc_interval - 1
+                # The attempt rewrites the live state: no in-flight record
+                # may straddle it.
+                while len(self._pending_q):
+                    self._pending_q.finalize_ready()
+                if persistence.attempt_relocalization(self, frame_set):
+                    self._want_reloc = False
+                    self._reloc_countdown = 0
+                else:
+                    self._reloc_countdown = self._reloc_interval - 1
 
         prediction = None
         if self._use_imu and frame_set.sensor_data is not None:
             self._imu.ingest(frame_set.sensor_data, frame_set.sensor_timestamp)
             prediction = self._imu.predict(frame_set.timestamp)
 
-        host = staging.stage_images(frame_set, self._source_order, self._zero_img)
-        images = torch.from_numpy(host).to(self._device)
         cam_active = None
         if frame_set.stale_sources:
             cam_active = torch.tensor(
-                [name not in frame_set.stale_sources for name in self._source_order],
-                device=self._device,
+                [name not in frame_set.stale_sources for name in self._source_order], device=self._device
             )
+        self._light_ctl.note_dispatch(light)
         self._tracker_state, out = trk.track_step(
             self._params, self._setup, self._tracker_state, images,
             generator=self._generator, cam_active=cam_active,
             pose_prediction=None if prediction is None else torch.from_numpy(prediction).to(self._device),
+            allow_refresh=not light, half_res=half,
         )
-        vals = trk.unpack_output(trk.pack_output(out))
-        tick = {
-            "ts": frame_set.timestamp,
-            "stale_sources": frame_set.stale_sources,
-            "pred": prediction,
-            # Packed before BA writes into the state, fetched on demand: BA
-            # reads the observations of the ticks it collects, loop closure
-            # the signature of keyframes.
+        # Only freshly packed tensors enter the record, never one that
+        # aliases the state: BA writes into the state before this record
+        # may be finalized. BA reads the observations of the ticks it
+        # collects, loop closure the signature of keyframes.
+        rec = {
+            "packed": trk.pack_output(out),
             "ba_obs": trk.pack_ba_obs(out, self._tracker_state.lm_pos_w) if self._enable_ba else None,
             "kf_sig": (
                 trk.pack_kf_sig(self._tracker_state)
-                if self._config.enable_loop_closure and vals["refreshed"]
+                if self._config.enable_loop_closure and out.refreshed_host
                 else None
             ),
+            "event": None,
+            "corr_epoch": self._ba_corr_total,
+            "ts": frame_set.timestamp,
+            "stale_sources": frame_set.stale_sources,
+            "pred": prediction,
+            "light": light,
+            "half": half,
+            "mono_bootstrap": None,
         }
+        self._start_fetch(rec)
         # After the tick's outputs are packed: they describe the step, not
         # the bootstrap that may follow it.
         if self._all_mono and not self._mono_boot_done:
-            self._attempt_mono_bootstrap()
-        return self._finalize(vals, tick)
+            rec["mono_bootstrap"] = self._attempt_mono_bootstrap()
+        return rec
 
-    def _attempt_mono_bootstrap(self) -> None:
+    def _start_fetch(self, rec: dict) -> None:
+        """Start the record's device-to-host copies into pinned memory and
+        record one event behind them (the record's readiness). On the CPU
+        the outputs are host tensors already."""
+        if self._device.type != "cuda":
+            return
+        for key in self._FETCH_KEYS:
+            value = rec[key]
+            if value is not None:
+                host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+                host.copy_(value, non_blocking=True)
+                rec[key] = host
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self._device))
+        rec["event"] = event
+
+    def _fetch_records(self, records: list[dict]) -> None:
+        """Wait for each record's copies and replace its tensors by numpy
+        arrays, in place."""
+        for rec in records:
+            if rec["event"] is not None:
+                rec["event"].synchronize()
+                rec["event"] = None
+            for key in self._FETCH_KEYS:
+                if isinstance(rec[key], torch.Tensor):
+                    rec[key] = rec[key].numpy()
+
+    def _finalize_tick(self, rec: dict) -> SlamPose | None:
+        """Back half of a synchronous tick: fetch, then finalize."""
+        self._fetch_records([rec])
+        return self._finalize_values(rec)
+
+    def _attempt_mono_bootstrap(self) -> dict | None:
         """While an all-mono rig has no map: the two-view bootstrap against
-        the live state (the tracks this tick advanced against their
-        keyframe anchors), every other tick after the first two."""
+        the live state (the tracks the tick just advanced against their
+        keyframe anchors), every other tick after the first two. Returns
+        the attempt's outcome, or None when no attempt was made."""
         if self._mono_boot_countdown > 0:
             self._mono_boot_countdown -= 1
-            return
-        # The tick's outputs were read back just before, so the device is
-        # idle here and the flag's readback closes the attempt: the host's
-        # clock around both is the attempt's time.
+            return None
+        # The flag's readback closes the attempt; the host's clock around it
+        # also holds whatever the device had queued before it.
         start = time.perf_counter()
         self._tracker_state, flag = trk.mono_init(
             self._params, self._setup, self._tracker_state, generator=self._generator
         )
         success, inliers, parallax, landmarks = flag.tolist()
-        self._mono_boot_attempt = {
+        attempt = {
             "success": success > 0.5, "inliers": int(inliers), "parallax": parallax, "landmarks": int(landmarks),
             "ms": 1e3 * (time.perf_counter() - start),
         }
         if success > 0.5:
             self._mono_boot_done = True
-            self._mono_rearm_after = self._frame_count + 3  # one tick in flight, plus two
+            # The ticks in flight, plus two, may not re-arm it.
+            self._mono_rearm_after = self._frame_count + self._pipeline_depth + 2
             logger.info(
                 "mono bootstrap accepted: %d epipolar inliers, %d landmarks, mean parallax %.4f "
                 "(up-to-scale gauge)", int(inliers), int(landmarks), parallax,
             )
         else:
             self._mono_boot_countdown = 1  # retry every other tick
+        return attempt
 
-    def _finalize(self, vals: dict, tick: dict) -> SlamPose | None:
-        """Host state machine for one tick, given the fetched outputs."""
+    def _finalize_values(self, rec: dict) -> SlamPose | None:
+        """Host state machine for one tick, given its fetched record."""
         # A lookup dispatched at an earlier keyframe resolves here.
         self._poll_loop()
+        vals = trk.unpack_output(rec["packed"])
         world_t_body = vals["world_t_body"]
         num_inliers = vals["num_inliers"]
         refreshed = vals["refreshed"]
         covariance = vals["covariance"]
-        ts = tick["ts"]
+        ts = rec["ts"]
         min_inl = self._params.min_track_inliers
 
+        # The residual before the epoch lift: the prediction and the solve
+        # are both in the frame the device had at dispatch.
         pred_err = None
-        if tick["pred"] is not None:
-            pred_err = float(np.linalg.norm(np.asarray(tick["pred"], np.float64)[:3, 3] - world_t_body[:3, 3]))
+        if rec["pred"] is not None:
+            pred_err = float(np.linalg.norm(np.asarray(rec["pred"], np.float64)[:3, 3] - world_t_body[:3, 3]))
+
+        # Corrections the device had not seen when this tick was dispatched
+        # (BA deltas written after it): lift the pose, its covariance and the
+        # position channels shipped with it into the current odom frame.
+        # Identity when every correction landed before the dispatch.
+        epoch = rec["corr_epoch"]
+        if epoch is not self._ba_corr_total:
+            missing = self._ba_corr_total @ np.linalg.inv(epoch)
+            world_t_body = missing @ world_t_body
+            covariance = geometry.rotate_cov6(missing[:3, :3], covariance)
+            # Channels: pack_ba_obs positions 7:10, pack_kf_sig 11:14.
+            for key, sl in (("ba_obs", slice(7, 10)), ("kf_sig", slice(11, 14))):
+                arr = rec[key]
+                if arr is not None:
+                    arr = np.array(arr)
+                    arr[..., sl] = arr[..., sl] @ missing[:3, :3].T.astype(arr.dtype) + missing[:3, 3].astype(arr.dtype)
+                    rec[key] = arr
 
         # A HELD pose (solve lacked support) grows the last trusted
         # covariance by the prediction's own uncertainty instead of quoting
@@ -380,7 +616,10 @@ class TorchSlamEngine(SlamEngine):
             "num_landmarks": vals["num_landmarks"],
             "rms_error": vals["rms_error"],
             "refreshed": refreshed,
-            "stale_sources": sorted(tick["stale_sources"]),
+            "stale_sources": sorted(rec["stale_sources"]),
+            "light_tick": bool(rec["light"]),
+            # The quality the tick shipped at (an adaptive degrade shows here).
+            "light_half": bool(rec["half"]),
         }
         if pred_err is not None:
             diag["imu_pred_err_m"] = pred_err
@@ -390,8 +629,8 @@ class TorchSlamEngine(SlamEngine):
             diag["accel_pred"] = self._imu.accel_pred_active()
             if self._imu.gravity_w is not None:
                 diag["gravity_norm"] = float(np.linalg.norm(self._imu.gravity_w))
-        if self._mono_boot_attempt is not None:  # this tick ended with a bootstrap attempt
-            diag["mono_bootstrap"], self._mono_boot_attempt = self._mono_boot_attempt, None
+        if rec["mono_bootstrap"] is not None:  # this tick ended with a bootstrap attempt
+            diag["mono_bootstrap"] = rec["mono_bootstrap"]
         self.last_diagnostics = diag
 
         self._imu.on_finalized(world_t_body, ts, tracked=num_inliers >= min_inl, epoch=self._ba_corr_total)
@@ -400,7 +639,7 @@ class TorchSlamEngine(SlamEngine):
 
         # All-mono: a VO restart (blackout, long occlusion) empties the
         # landmark set; the bootstrap loop starts again. The guard keeps the
-        # tick that was dispatched before a fresh bootstrap from re-arming it.
+        # ticks dispatched before a fresh bootstrap from re-arming it.
         if (
             self._all_mono
             and self._mono_boot_done
@@ -429,25 +668,29 @@ class TorchSlamEngine(SlamEngine):
         if self._enable_ba:
             tracked_now = num_inliers >= min_inl and self._frame_count > 1
             if tracked_now and (refreshed or self._frame_count % self._ba.tick_stride == 0):
-                self._ba.push_tick(tick["ba_obs"], world_t_body, ts, refreshed)
+                self._ba.push_tick(rec["ba_obs"], world_t_body, ts, refreshed)
             elif refreshed:
                 # A refresh while untracked is a VO restart: fresh ids, the
                 # old window cannot join.
                 self._ba.clear()
             if refreshed and self._state_enum == TrackingState.TRACKING:
+                # The correction lands on the newest live state; ticks
+                # dispatched before it get the epoch lift at their finalize.
                 self._tracker_state, world_t_body, t_corr = self._ba.run(
                     world_t_body, covariance, self._tracker_state, self.last_diagnostics
                 )
                 if t_corr is not None:
                     self._ba_corr_total = t_corr @ self._ba_corr_total
                     self._imu.on_correction(world_t_body, t_corr, self._ba_corr_total)
+        if refreshed:
+            self._last_kf_odom = world_t_body
 
         if refreshed and self._state_enum == TrackingState.TRACKING:
             map_pose = self._map_t_odom @ world_t_body
             self._keyframe_poses.append(SlamPose.from_4x4_matrix(map_pose, timestamp=ts))
-            if self._config.enable_loop_closure and tick["kf_sig"] is not None:
+            if self._config.enable_loop_closure and rec["kf_sig"] is not None:
                 self._loop.on_keyframe(
-                    map_pose, ts, trk.unpack_kf_sig(tick["kf_sig"]), self._map_t_odom, self._frame_count
+                    map_pose, ts, trk.unpack_kf_sig(rec["kf_sig"]), self._map_t_odom, self._frame_count
                 )
             if len(self._keyframe_poses) > 10000:
                 self._keyframe_poses = self._keyframe_poses[-10000:]
@@ -483,10 +726,17 @@ class TorchSlamEngine(SlamEngine):
         self._map_t_odom = t_corr @ self._map_t_odom
 
     def flush(self) -> SlamPose | None:
-        """Drain a loop detection still in flight (stream end). Ticks are
-        synchronous, so no pose is pending."""
+        """Finalize every in-flight tick and return the last pose (None
+        when synchronous: no tick is pending). Under ``defer_sync`` the
+        whole stream is finalized here and :attr:`last_flush_poses` holds
+        every tick's pose. Then a loop detection still in flight is
+        drained (stream end)."""
+        pose, per_tick = self._pending_q.drain()
+        if per_tick is not None:
+            self.last_flush_poses = per_tick
+            return pose
         self._poll_loop(block=True)
-        return None
+        return pose
 
     def get_tracking_state(self) -> TrackingState:
         return self._state_enum
@@ -557,6 +807,8 @@ class TorchSlamEngine(SlamEngine):
     # ------------------------------------------------------------ lifecycle
 
     def reset(self) -> None:
+        """A fresh state; in-flight ticks are dropped and the uploader's
+        thread is stopped (a new one starts with the next pipelined tick)."""
         if self._params is not None:
             self._tracker_state = trk.init_state(self._params, self._device)
             self._generator = torch.Generator(device=self._device).manual_seed(self._seed)
@@ -565,5 +817,7 @@ class TorchSlamEngine(SlamEngine):
             self._state_enum = TrackingState.INITIALIZING
 
     def shutdown(self) -> None:
+        self._close_uploader()
+        self._pending_q.clear()
         self._tracker_state = None
         self._state_enum = TrackingState.NOT_INITIALIZED

@@ -16,6 +16,12 @@ pose:
 ``median_prefilter`` passes every input image through an exact 3x3 median
 first.
 
+A light tick (``allow_refresh=False``) takes the left images only, (C, 1,
+H, W): the keyframe branch, the only reader of the right images, is never
+entered and its flag is never read back. With ``half_res`` the images
+arrive at half resolution (the host's 2x2 mean) and are upsampled 2x,
+bilinearly, before anything else reads them.
+
 Mono sources (``stereo_mask`` False; the engine sets ``has_mono``) never
 triangulate. On a mixed rig their keyframe detections are seeded from the
 landmarks the stereo cameras minted in the same keyframe, each with a
@@ -29,16 +35,15 @@ over both eyes of every camera, the same counts as on a stereo rig, and
 ``stereo_mask`` drops every stereo product of such a camera.
 
 The reference selects the keyframe branch with a device-side ``lax.cond``;
-here it is a host ``if`` on the refresh flag, one 1-byte readback per
-tick. Every tensor keeps a fixed shape, so the hot path can later be
-captured in a CUDA graph.
+here it is a host ``if`` on the refresh flag, one 1-byte readback per full
+tick (:attr:`TrackOutput.refreshed_host` hands it to the caller). Every
+tensor keeps a fixed shape, so the hot path can later be captured in a CUDA
+graph.
 
 An external pose prediction (the IMU backend's) seeds KLT and PnP in place
 of the constant-velocity model. :func:`pack_ba_obs` and
 :func:`pack_kf_sig` ship the tick's bundle-adjustment observations and
 keyframe signature to the host backends in the reference's layouts.
-
-Light ticks and half-resolution staging are not ported yet.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ import torch
 from thor_slam_tpu_torch.engine import epipolar, pnp, triangulate
 from thor_slam_tpu_torch.ops import brief, calib, fast, klt, match
 from thor_slam_tpu_torch.ops import stereo as stereo_ops
-from thor_slam_tpu_torch.ops.image import downsample2, gaussian_blur, median3x3
+from thor_slam_tpu_torch.ops.image import downsample2, gaussian_blur, median3x3, upsample2
 from thor_slam_tpu_torch.ops.lie import se3_inverse
 
 
@@ -178,7 +183,9 @@ class TrackerState(NamedTuple):
 
 
 class TrackOutput(NamedTuple):
-    """Per-tick outputs; fields as the reference's ``TrackOutput``."""
+    """Per-tick outputs; fields as the reference's ``TrackOutput``, plus
+    ``refreshed_host``: ``refreshed`` as the host read it to select the
+    keyframe branch (False on a light tick, which reads nothing back)."""
 
     world_t_body: torch.Tensor
     num_inliers: torch.Tensor
@@ -192,6 +199,7 @@ class TrackOutput(NamedTuple):
     lm_id: torch.Tensor
     lm_valid: torch.Tensor
     robs_valid: torch.Tensor
+    refreshed_host: bool = False
 
 
 class HotProducts(NamedTuple):
@@ -265,6 +273,8 @@ def track_step(
     generator: torch.Generator | None = None,
     cam_active: torch.Tensor | None = None,
     pose_prediction: torch.Tensor | None = None,
+    allow_refresh: bool = True,
+    half_res: bool = False,
 ) -> tuple[TrackerState, TrackOutput]:
     """One VO tick.
 
@@ -272,7 +282,9 @@ def track_step(
         params: Static configuration.
         setup: Per-camera constants (on the state's device).
         state: Current state.
-        images: (C, 2, H, W) uint8 frames, or float32 in [0, 1] (left, right).
+        images: (C, 2, H, W) uint8 frames, or float32 in [0, 1] (left,
+            right); (C, 1, H, W) left images on a light tick; at (H/2, W/2)
+            with ``half_res``.
         uniforms: Optional (ransac_hypotheses, C*N) RANSAC draws in [0, 1).
         generator: Source of the RANSAC draws when ``uniforms`` is None.
         cam_active: Optional (C,) bool of live cameras; dead cameras are
@@ -280,6 +292,14 @@ def track_step(
         pose_prediction: Optional (4, 4) world_T_body prediction (IMU
             preintegration); it seeds both KLT and the PnP solve. None
             means the constant-velocity model.
+        allow_refresh: False makes a light tick: no keyframe, no restart
+            (the untracked streak keeps counting and trips at the next full
+            tick), the keyframe front end is never entered and nothing is
+            read back. The state and outputs are those of a full tick that
+            chose not to refresh.
+        half_res: The images are 2x-downsampled; they are upsampled back
+            bilinearly (half-pixel centres, as the host's 2x2 mean) before
+            the median prefilter and KLT.
 
     Returns:
         (new_state, output).
@@ -287,6 +307,8 @@ def track_step(
     p = params
     if images.dtype == torch.uint8:
         images = images.float() * (1.0 / 255.0)
+    if half_res:
+        images = upsample2(images)
     if p.median_prefilter:
         images = median3x3(images)
 
@@ -338,6 +360,7 @@ def track_step(
         init_body_t_world=init_body_t_world,
         covariance=result.covariance,
         cam_active=cam_active,
+        allow_refresh=allow_refresh,
     )
 
 
@@ -674,8 +697,11 @@ def _finish_step(
     init_body_t_world: torch.Tensor,
     covariance: torch.Tensor,
     cam_active: torch.Tensor | None = None,
+    allow_refresh: bool = True,
 ) -> tuple[TrackerState, TrackOutput]:
-    """Back half of a tick: acceptance, keyframe policy, state update."""
+    """Back half of a tick: acceptance, keyframe policy, state update.
+    ``allow_refresh=False`` (a light tick) neither refreshes nor restarts
+    and reads nothing back."""
     p = params
     tracked = num_inliers >= p.min_track_inliers
     body_t_world = torch.where(tracked, body_t_world, init_body_t_world)
@@ -700,10 +726,16 @@ def _finish_step(
         too_few = torch.sum(hot.tracks_valid & state.lm_valid) < p.mono_reboot_min_tracks
         restart = restart & (bootstrapped | too_few)
     refresh_t = (state.frame_idx == 0) | (tracked & want_kf) | restart
+    if not allow_refresh:
+        # Keyframes are scheduled onto full ticks by the host; the streak
+        # keeps counting and trips at the next full tick.
+        refresh_t = torch.zeros_like(refresh_t)
+        restart = torch.zeros_like(restart)
     untracked_streak = torch.where(restart, 0, untracked_streak)
 
     c_, n_ = p.num_cams, p.max_keypoints
-    refresh = bool(refresh_t)  # the tick's one readback: selects the branch
+    # A full tick's one readback: it selects the branch.
+    refresh = bool(refresh_t) if allow_refresh else False
     if refresh:
         kf = run_keyframe_frontend(p, setup, images)
         fresh_ids = state.lm_id_counter + torch.arange(
@@ -782,6 +814,7 @@ def _finish_step(
         lm_id=lm_id,
         lm_valid=lm_valid_out,
         robs_valid=lm_robs_valid,
+        refreshed_host=refresh,
     )
     return new_state, output
 

@@ -10,6 +10,7 @@ floor/clip/weight order), so it agrees with it to float rounding.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _gaussian_taps(sigma: float, radius: int) -> list[float]:
@@ -76,6 +77,15 @@ def downsample2(images: torch.Tensor, blur: bool = True) -> torch.Tensor:
     x = images[..., : h2 * 2, : w2 * 2]
     x = x.reshape(*x.shape[:-2], h2, 2, w2, 2)
     return x.mean(dim=(-3, -1))
+
+
+def upsample2(images: torch.Tensor) -> torch.Tensor:
+    """(C, S, h, w) -> (C, S, 2h, 2w) bilinear upsample with half-pixel
+    centres: the reference's ``jax.image.resize(method="linear")`` at a
+    scale of two, the inverse of the host's 2x2 mean
+    (``downsample2_host``) up to the finest octave."""
+    h, w = images.shape[-2:]
+    return F.interpolate(images, size=(2 * h, 2 * w), mode="bilinear", align_corners=False)
 
 
 def extract_patches_flat(
