@@ -92,11 +92,36 @@ tree it shows which gate an outcome of that phase turned on. It
    ticks with half-resolution light ticks, then the adaptive controller
    told the stream is paced (where it degraded is printed, no bar). PR 6's
    phases run the synchronous engine with light ticks off, as then. Every
-   phase of the modes asserts the launch identities.
+   phase of the modes asserts the launch identities. To keep the run short,
+   ``deep``'s flying start is the first 30 ticks of the full render,
+   ``defer_sync`` and ``half`` drive the slice's first 20 ticks, and 8
+   deployed calls are profiled (DEEP_TICKS, MODE_TICKS, SYNC_PROFILE_TICKS);
+8. dense mapping (``mapping:`` lines) at the deployed grid, 256x256x128 at
+   0.05 m with colour (``MapperConfig()``): the slice's 8 RGB-D frames made
+   with ``fetch=False`` and integrated by ``DenseMapper`` at the engine's
+   poses composed with the product's frame. Times each integrate (the host's
+   side unsynchronized, the device's between CUDA events) against its bound
+   (the grid read and written, depth and colour read, over 3.35 TB/s), the
+   bulk integrator (which must give the sequential grid), decay, one forced
+   recenter, the surface cloud, the mesh and the costmap slice; the grid's
+   bytes and the peak memory. Asserts 0 synchronizing runtime calls per
+   integrate under torch.profiler, the SGM launch identity of the 8 frames,
+   a mesh with triangles and no budget hit, an occupied costmap, and the
+   accuracy against a grid of the same frames and poses with the renderer's
+   true depth (MAP_MIN_TRUTH_SHARE, MAP_MAX_MEDIAN_TSDF_ERR_VOX, the comment
+   above them says which voxels each holds);
+9. the runner (``runner:`` lines): the port's ``run_pipeline.run`` for 10
+   ticks on the card with RUNNER_CONFIG, the deployed YAML's values with the
+   synthetic rig (4 sources at 640x400, colour 1280x800) and mapping on at
+   the deployed grid; asserts rc 0, the ``Dense map:`` line and the gather,
+   FAST and SGM launch identities of its ticks and RGB-D frames.
 
 Every phase's frames are rendered ahead by a pool of worker processes (a
 frame is a deterministic function of its index), which are idle while ticks
-are timed and stopped before the result is printed.
+are timed and stopped before the result is printed; the mono and runner
+phases' frames render while the deployed phase's profiled calls, which are
+counted and not timed, run. The line ``run: <s> s`` gives the whole run's
+seconds from the start of ``main``.
 
 Any failure exits non-zero without printing a result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -196,7 +221,7 @@ DEPLOYED_MODES = dict(
     prewarm_degraded=True, pipelined=True, pipeline_depth=1, light_ticks=None, light_half_res=False,
     adaptive_half_res=True,
 )
-DEEP_TICKS = 60  # the full-engine render before its blackout
+DEEP_TICKS = 30  # the first second of the full-engine render, well before its blackout
 DEEP_DEPTH = 4
 # The full-engine render moves at 1 rad/s from its first tick. At depth d the
 # first d dispatches come before any tick is finalized, so the IMU has no
@@ -205,8 +230,55 @@ DEEP_DEPTH = 4
 # error stays in the odometry. The ATE bar of tests/test_engine_pipeline_deep.py
 # is therefore held on the slice's slower orbit, with its IMU packets added.
 MAX_DEFER_ATE_DIFF_M = 1e-4
-SYNC_PROFILE_TICKS = 16  # deployed ticks under the profiler, before the blackout
+MODE_TICKS = 20  # the slice's first ticks, which the defer_sync and half phases drive
+SYNC_PROFILE_TICKS = 8  # deployed ticks under the profiler, before the blackout
 RENDER_WORKERS = 6  # processes that render frames ahead (at most all cores but two)
+# Dense mapping: the deployed grid (config/slam_config.yaml mapping section,
+# MapperConfig's defaults) fed by the slice's RGB-D frames, held against a
+# grid of the same frames and poses with the renderer's true depth. Bars
+# (>= 95 % each): the SGM grid's observed voxels on the near side of its
+# surface (tsdf >= 0) are observed in the truth grid, and the truth grid's
+# observed voxels in the SGM grid; the median |dtsdf| on the voxels both
+# observe, and on those inside the truth's truncation band, is at most one
+# voxel (0.05 m). The SGM grid's voxels behind its surface are not held to
+# the truth's: they lie behind the true surface wherever the product's depth
+# lies more than the truncation band (0.2 m) beyond the truth, which ~6 % of
+# its valid pixels do at 2-7 m (printed; the product is the reference's to
+# 1e-5), so ~8.5 % of all its observed voxels are not in the truth grid.
+MAP_FORCED_SHIFT = (8, -8, 0)  # voxels: one recenter, timed on a copy of the grid
+MAP_MIN_TRUTH_SHARE = 0.95
+MAP_MAX_MEDIAN_TSDF_ERR_VOX = 1.0  # voxels: 0.05 m at the deployed grid
+# The runner phase: the port's run_pipeline.run on the deployed YAML's values
+# (config/slam_config.yaml; the card's machine has no pyyaml, so they are
+# written here) with the synthetic rig of that file's synthetic section at 4
+# sources and a 1280x800 colour imager, and mapping on at the deployed grid.
+# The file's camera list and nvblox_cameras name the hardware rig (its RGB-D
+# camera 192.168.2.25 is not one of the synthetic rig's four), so they are
+# left out: in synthetic mode the first source feeds the RGB-D stream.
+RUNNER_TICKS = 10
+RUNNER_CONFIG = {
+    "fps": 30,
+    "display": False,
+    "urdf_path": "",
+    "imu_report_rate": 400,
+    "queue_size": 8,
+    "rig_queue_size": 10,
+    "watchdog_timeout_s": 1.0,
+    "backend": {
+        "max_keypoints": 512, "enable_ba": True, "enable_loop_closure": True, "use_imu": True, "use_accel": True,
+        "pipelined": True, "pipeline_depth": 1, "devices": 1, "light_half_res": False, "adaptive_half_res": True,
+        "tracker": {},
+    },
+    "synthetic": {
+        "enabled": True, "num_cameras": 4, "resolution": [640, 400], "baseline_m": 0.075, "trajectory_radius": 1.8,
+        "room_half_extents": [5.0, 5.0, 2.5], "color_camera": True, "color_resolution": list(COLOR_RESOLUTION),
+    },
+    "mapping": {
+        "enabled": True, "voxel_size_m": 0.05, "dims": [256, 256, 128], "truncation_vox": 4.0,
+        "max_integration_distance_m": 10.0, "integrate_color": True, "recenter_margin_m": 2.0, "slice_axis": 2,
+        "slice_band_m": [0.0, 1.0], "esdf_max_distance_m": 2.0, "integrate_every": 1,
+    },
+}
 # --tick-launches: ticks under the profiler, then unprofiled ticks.
 PROFILE_TICKS = 28  # the slice refreshes about every 13th tick: two keyframes
 TIMED_TICKS = 30
@@ -654,6 +726,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     ``scan_launches`` is what one 4-direction aggregation launched in the
     kernel phase, which every RGB-D frame must match."""
     from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.types import CameraFrame
     from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
     from thor_slam_tpu_torch.utils.evaluation import ate_rmse
     from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
@@ -665,14 +738,22 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     params, _, calibration, sources, _, traj = flagship_rig(4, 640, 400, 512, color_resolution=COLOR_RESOLUTION)
     src = sources[0]
     t0 = time.perf_counter()
-    frames, colors = [], {}
-    prerender(pool, sources, TICKS + 1)
+    deliver = submit_renders(pool, sources, TICKS + 1)
+    # The colour frame of each RGB-D tick and its true depth render in the
+    # pool too (submitted before the stereo frames reach the sources, which
+    # are pickled with each job).
+    rgbd_ticks = [i for i in range(TICKS + 1) if (i + 1) % RGBD_EVERY == 0 or i == TICKS]
+    jobs = {i: pool.submit(_color_and_depth, src, i) for i in rgbd_ticks} if pool is not None else {}
+    deliver()
     with CameraRig(sources, rig_extrinsics=calibration.rig_extrinsics) as rig:
-        for i in range(TICKS + 1):
-            frames.append(rig.get_synchronized_frames())
-            if (i + 1) % RGBD_EVERY == 0 or i == TICKS:
-                colors[i] = src.try_get_latest_rgb_frame()
-    truth = {i: src.render_color_depth(c.sequence_num) for i, c in colors.items()}
+        frames = [rig.get_synchronized_frames() for _ in range(TICKS + 1)]
+    colors, truth = {}, {}
+    for i in rgbd_ticks:
+        if frames[i].get_frames_for_source(src.name)[0].sequence_num != i:
+            raise AssertionError(f"tick {i} does not carry frame {i} of {src.name}")
+        image, truth[i] = jobs[i].result() if jobs else _color_and_depth(src, i)
+        # What the source's try_get_latest_rgb_frame gives after tick i.
+        colors[i] = CameraFrame(image=image, timestamp=src.frame_time(i), sequence_num=i, camera_name=f"{src.name}_rgb")
     extra = frames.pop()  # the frame set of the phase split
     print(
         f"rendered {TICKS + 1} frame sets (4 x 2 x 640x400), {len(colors)} color frames and their depth "
@@ -700,7 +781,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     fast_cuda.reset_counts()
     sgm_cuda.reset_counts()
     tick_ms, refreshed, states, est, gt = [], [], [], [], []
-    rgbd_ms, rgbd_acc = [], []
+    rgbd_ms, rgbd_acc, rgbd_items = [], [], []
     gt0 = traj.pose(frames[0].timestamp)
     for i, fs in enumerate(frames):
         t = time.perf_counter()
@@ -719,6 +800,9 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
             if frame.depth_mm.shape != COLOR_RESOLUTION[::-1] or frame.rgb.shape != (*COLOR_RESOLUTION[::-1], 3):
                 raise AssertionError(f"RGB-D frame shapes {frame.rgb.shape} / {frame.depth_mm.shape}")
             rgbd_acc.append((i, *depth_accuracy(frame, truth[i])))
+            # The mapping phase integrates this tick's product at this pose.
+            rgbd_items.append(dict(tick=i, frame_set=fs, color=colors[i], truth=truth[i],
+                                   world_t_body=pose.to_4x4_matrix()))
     counts = {
         "patch_gather": dict(patches_cuda.counts),
         "fast9_nms": dict(fast_cuda.counts),
@@ -790,7 +874,9 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     if not max(rels) < MAX_MEDIAN_REL_ERR or not min(shares) > MIN_VALID_SHARE:
         raise AssertionError(f"RGB-D depth off the bar: valid shares {shares}, median rel errors {rels}")
     reuse = dict(calibration=calibration, traj=traj, frames=frames[:SWITCH_TICKS], tick_ms=tick_ms[:SWITCH_TICKS],
-                 max_keypoints=params.max_keypoints, klt_levels=params.klt_levels, all_frames=frames, ate=ate)
+                 max_keypoints=params.max_keypoints, klt_levels=params.klt_levels, all_frames=frames, ate=ate,
+                 processor=processor, rgbd_items=rgbd_items,
+                 body_t_left=calibration.get_world_extrinsics(src.name)[0].to_4x4_matrix())
     return {name: c["kernel"] for name, c in counts.items()}, len(rgbd_ms), reuse
 
 
@@ -799,26 +885,41 @@ def _render_block(source, keys):
     return {(n, ci): source.render_frame(n, ci) for n, ci in keys}
 
 
-def prerender(pool, sources, ticks: int, block: int = 4) -> None:
-    """Render the first ``ticks`` frames of every imager of ``sources`` in
-    the pool's processes and hand them to the sources, which deliver them
-    when the rig asks (a frame is a deterministic function of its index).
-    The workers are idle whenever ticks are timed. Without a pool the
+def _color_and_depth(source, n: int):
+    """In a worker process: colour frame ``n`` of ``source`` and the true
+    depth along its rays."""
+    return source.render_color_frame(n), source.render_color_depth(n)
+
+
+def submit_renders(pool, sources, ticks: int, block: int = 4):
+    """Start rendering the first ``ticks`` frames of every imager of
+    ``sources`` in the pool's processes (a frame is a deterministic function
+    of its index); returns a function that waits for them and hands them to
+    the sources, which deliver them when the rig asks. Without a pool the
     sources render as they go."""
-    if pool is None:
-        return
     blocks = []
-    for source in sources:
+    for source in sources if pool is not None else ():
         imagers = len(source.get_extrinsics())
         for start in range(0, ticks, block):
             keys = [(n, ci) for n in range(start, min(start + block, ticks)) for ci in range(imagers)]
             blocks.append((source, pool.submit(_render_block, source, keys)))
-    # A block's source is pickled when the block is sent to a worker, not when
-    # it is submitted: the sources get their frames only after every block is
-    # back, or the later blocks would carry the earlier blocks' frames along.
-    done = [(source, future.result()) for source, future in blocks]
-    for source, frames in done:
-        source.prerender(frames)
+
+    def deliver() -> None:
+        # A block's source is pickled when the block is sent to a worker, not
+        # when it is submitted: the sources get their frames only after every
+        # block is back, or the later blocks would carry the earlier blocks'
+        # frames along.
+        done = [(source, future.result()) for source, future in blocks]
+        for source, frames in done:
+            source.prerender(frames)
+
+    return deliver
+
+
+def prerender(pool, sources, ticks: int, block: int = 4) -> None:
+    """Render ahead and deliver (``submit_renders``), waiting for the
+    workers: they are idle whenever ticks are timed."""
+    submit_renders(pool, sources, ticks, block)()
 
 
 def _sync(dev) -> None:
@@ -1313,25 +1414,38 @@ def check_on_rig_frames(dev, label: str, frames, calibration, max_keypoints: int
 
 def render_mono_inputs(width=640, height=400, max_keypoints=512, pool=None) -> dict:
     """The frame sets of the mixed and the all-mono rig."""
+    return start_mono_inputs(width, height, max_keypoints, pool)()
+
+
+def start_mono_inputs(width=640, height=400, max_keypoints=512, pool=None):
+    """Start rendering the mixed and the all-mono rig's frames in the pool;
+    returns a function that waits for them and gives ``render_mono_inputs``'s
+    result (render_s: the wait)."""
     from thor_slam_tpu_torch.camera.rig import CameraRig
     from thor_slam_tpu_torch.utils.flagship import flagship_rig, mono_rig
 
-    out = {}
-    t0 = time.perf_counter()
     # Mixed: 4 stereo + 1 mono (the last in name order), as the slice is driven.
-    params, _, calibration, sources, _, traj = flagship_rig(4, width, height, max_keypoints, mono_yaws=(MIXED_MONO_YAW,))
-    prerender(pool, sources, MIXED_TICKS)
-    with CameraRig(sources, rig_extrinsics=calibration.rig_extrinsics) as rig:
-        frames = [rig.get_synchronized_frames() for _ in range(MIXED_TICKS)]
-    out["mixed"] = dict(klt_levels=params.klt_levels, calibration=calibration, traj=traj, frames=frames, render_s=time.perf_counter() - t0)
-    t0 = time.perf_counter()
+    params, _, mixed_cal, mixed_sources, _, mixed_traj = flagship_rig(
+        4, width, height, max_keypoints, mono_yaws=(MIXED_MONO_YAW,)
+    )
     # All-mono: two cameras, the IMU of source 0 (gyro prediction only).
-    calibration, sources, traj = mono_rig(2, width, height)
-    prerender(pool, sources, MONO_TICKS)
-    with CameraRig(sources, rig_extrinsics=calibration.rig_extrinsics, imu_source=sources[0].name) as rig:
-        frames = [rig.get_synchronized_frames() for _ in range(MONO_TICKS)]
-    out["mono"] = dict(calibration=calibration, traj=traj, frames=frames, render_s=time.perf_counter() - t0)
-    return out
+    mono_cal, mono_sources, mono_traj = mono_rig(2, width, height)
+    delivers = [submit_renders(pool, mixed_sources, MIXED_TICKS), submit_renders(pool, mono_sources, MONO_TICKS)]
+
+    def finish() -> dict:
+        t0 = time.perf_counter()
+        for deliver in delivers:
+            deliver()
+        with CameraRig(mixed_sources, rig_extrinsics=mixed_cal.rig_extrinsics) as rig:
+            frames = [rig.get_synchronized_frames() for _ in range(MIXED_TICKS)]
+        mixed = dict(klt_levels=params.klt_levels, calibration=mixed_cal, traj=mixed_traj, frames=frames)
+        with CameraRig(mono_sources, rig_extrinsics=mono_cal.rig_extrinsics, imu_source=mono_sources[0].name) as rig:
+            frames = [rig.get_synchronized_frames() for _ in range(MONO_TICKS)]
+        render_s = time.perf_counter() - t0
+        return dict(mixed=dict(mixed, render_s=render_s),
+                    mono=dict(calibration=mono_cal, traj=mono_traj, frames=frames, render_s=render_s))
+
+    return finish
 
 
 def run_mono_phases(dev, reuse: dict, inputs: dict, max_keypoints=512, kernels: bool = True) -> dict:
@@ -1542,8 +1656,8 @@ def run_deep(dev, inputs: dict, reuse: dict, kernels: bool = True) -> dict:
 
 
 def run_defer_sync(dev, reuse: dict, kernels: bool = True) -> dict:
-    """The slice's frames, VO only (BA and the IMU off), synchronous and
-    under ``defer_sync``: every deferred call returns None, the flush gives
+    """The slice's first MODE_TICKS frames, VO only (BA and the IMU off),
+    synchronous and under ``defer_sync``: every deferred call returns None, the flush gives
     one pose a tick, and the ATE is the synchronous run's within
     MAX_DEFER_ATE_DIFF_M. Returns both runs' launches."""
     from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
@@ -1552,7 +1666,7 @@ def run_defer_sync(dev, reuse: dict, kernels: bool = True) -> dict:
 
     failures: list[str] = []
     launches = {"patch_gather": 0, "fast9_nms": 0}
-    frames, traj = reuse["all_frames"], reuse["traj"]
+    frames, traj = reuse["all_frames"][:MODE_TICKS], reuse["traj"]
     runs = {}
     for name, modes in (("synchronous", dict(light_ticks=False)), ("defer_sync", dict(pipelined=True, defer_sync=True))):
         engine = TorchSlamEngine(params=dict(max_keypoints=reuse["max_keypoints"]), device=dev, seed=SEED,
@@ -1586,8 +1700,8 @@ def run_defer_sync(dev, reuse: dict, kernels: bool = True) -> dict:
 
 
 def run_half(dev, reuse: dict, kernels: bool = True) -> dict:
-    """The slice's frames with half-resolution light ticks (the slice's
-    engine otherwise): half-res light ticks run and the ATE stays under 5
+    """The slice's first MODE_TICKS frames with half-resolution light ticks
+    (the slice's engine otherwise): half-res light ticks run and the ATE stays under 5
     cm. Then the deployed engine with the adaptive controller told the
     stream is paced (``pace_override``: a rig that drops frames): the tick
     on which it degraded, if any, and its busy EMA are printed, no bar (the
@@ -1598,7 +1712,7 @@ def run_half(dev, reuse: dict, kernels: bool = True) -> dict:
 
     failures: list[str] = []
     launches = {"patch_gather": 0, "fast9_nms": 0}
-    frames, traj = reuse["all_frames"], reuse["traj"]
+    frames, traj = reuse["all_frames"][:MODE_TICKS], reuse["traj"]
     config = SlamConfig(num_cameras=8, enable_loop_closure=False)
     engine = TorchSlamEngine(params=dict(max_keypoints=reuse["max_keypoints"]), device=dev, seed=SEED,
                              light_ticks=True, light_half_res=True)
@@ -1647,6 +1761,23 @@ def run_half(dev, reuse: dict, kernels: bool = True) -> dict:
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
 
+def _profiled_spans(prof, names):
+    """The host ranges ``phase:<name>`` of a torch.profiler run, by name, and
+    a function that counts the synchronizing runtime calls (_SYNC_CALLS)
+    that start inside a range."""
+    from torch.autograd import DeviceType
+
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = {name: sorted((e.time_range.start, e.time_range.end) for e in host if e.name == f"phase:{name}")
+             for name in names}
+    stamps = np.sort(np.asarray([e.time_range.start for e in host if e.name in _SYNC_CALLS], np.float64))
+
+    def inside(span) -> int:
+        return int(np.searchsorted(stamps, span[1], "right") - np.searchsorted(stamps, span[0], "left"))
+
+    return spans, inside
+
+
 def sync_calls_by_tick_type(dev, inputs: dict) -> dict:
     """Synchronizing runtime calls of the deployed engine by tick type (the
     ``--tick-launches`` recipe): SYNC_PROFILE_TICKS calls after warm-up
@@ -1655,7 +1786,6 @@ def sync_calls_by_tick_type(dev, inputs: dict) -> dict:
     cudaDeviceSynchronize, cudaEventSynchronize) counted inside each.
     A call's tick type is that of the tick it dispatched: light, full
     (no keyframe) or keyframe; the call also finalizes the tick before."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from thor_slam_tpu_torch.engine import tracker as trk
@@ -1687,14 +1817,7 @@ def sync_calls_by_tick_type(dev, inputs: dict) -> dict:
         trk.track_step = step
     engine.flush()
     engine.shutdown()
-    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    spans = {name: sorted((e.time_range.start, e.time_range.end) for e in host if e.name == f"phase:{name}")
-             for name in ("call", "track_step")}
-    stamps = np.sort(np.asarray([e.time_range.start for e in host if e.name in _SYNC_CALLS], np.float64))
-
-    def inside(span):
-        return int(np.searchsorted(stamps, span[1], "right") - np.searchsorted(stamps, span[0], "left"))
-
+    spans, inside = _profiled_spans(prof, ("call", "track_step"))
     if len(spans["call"]) != SYNC_PROFILE_TICKS or len(kinds) != SYNC_PROFILE_TICKS:
         raise AssertionError(f"{len(spans['call'])} call ranges and {len(kinds)} steps, not {SYNC_PROFILE_TICKS}")
     rows: dict[str, list] = {}
@@ -1709,6 +1832,290 @@ def sync_calls_by_tick_type(dev, inputs: dict) -> dict:
     print(f"deployed: synchronizing runtime calls by tick type (medians over {SYNC_PROFILE_TICKS} profiled calls; "
           f"{', '.join(_SYNC_CALLS)}): {json.dumps(out)}")
     return out
+
+
+def _event_ms(dev, fn) -> tuple[float, float]:
+    """(host ms of ``fn()`` without a synchronization, device ms between two
+    CUDA events around it); on the CPU both are the host's clock."""
+    if dev.type != "cuda":
+        t = time.perf_counter()
+        fn()
+        ms = 1e3 * (time.perf_counter() - t)
+        return ms, ms
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.perf_counter()
+    fn()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    end.record()
+    end.synchronize()
+    return host_ms, start.elapsed_time(end)
+
+
+def _truth_mm(depth_m: np.ndarray) -> np.ndarray:
+    """The renderer's true depth in the product's encoding (u16 mm, 0 invalid)."""
+    mm = np.round(np.nan_to_num(depth_m, nan=0.0, posinf=0.0) * 1000.0)
+    return np.where((mm > 0) & (mm <= 65535), mm, 0).astype(np.uint16)
+
+
+def render_mapping_inputs(dev, width=320, height=200, color_resolution=(640, 400), ticks=10) -> dict:
+    """The mapping phase's inputs without the slice (a CPU rehearsal): one
+    camera of the flagship rig, an RGB-D frame every RGBD_EVERY ticks at the
+    true body poses relative to the first tick."""
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.pipeline import RGBDProcessor
+    from thor_slam_tpu_torch.utils.flagship import flagship_rig
+
+    _, _, calibration, sources, _, traj = flagship_rig(1, width, height, 64, color_resolution=color_resolution)
+    src = sources[0]
+    processor = RGBDProcessor(src.name, src.get_intrinsics(), src.get_extrinsics(), num_disparities=RGBD_DISPARITIES,
+                              color_intrinsics=src.get_rgb_intrinsics(),
+                              left_t_color=src.get_rgb_extrinsics().to_4x4_matrix(), device=dev)
+    items = []
+    with CameraRig(sources, rig_extrinsics=calibration.rig_extrinsics) as rig:
+        for i in range(ticks):
+            fs = rig.get_synchronized_frames()
+            if (i + 1) % RGBD_EVERY == 0:
+                color = src.try_get_latest_rgb_frame()
+                gt0 = traj.pose(0.0)
+                items.append(dict(tick=i, frame_set=fs, color=color, truth=src.render_color_depth(color.sequence_num),
+                                  world_t_body=np.linalg.inv(gt0) @ traj.pose(fs.timestamp)))
+    return dict(processor=processor, rgbd_items=items,
+                body_t_left=calibration.get_world_extrinsics(src.name)[0].to_4x4_matrix())
+
+
+def run_mapping(dev, reuse: dict, scan_launches: int, config=None, kernels: bool = True) -> dict:
+    """Dense mapping at the deployed grid (``MapperConfig()``) on the slice's
+    RGB-D frames: each product made with ``fetch=False`` and integrated by a
+    ``DenseMapper`` on the card at the engine's pose composed with the
+    product's frame, as ``run_pipeline`` does. Times each integrate (host,
+    unsynchronized, and device, between CUDA events), the bulk integrator,
+    decay, one forced recenter, the surface cloud, the mesh and the costmap
+    slice; counts the synchronizing runtime calls of each integrate under
+    torch.profiler (must be 0); holds the SGM launch identity of the mapped
+    frames, and the grid against one integrated from the renderer's true
+    depth at the same poses. Returns the SGM launches."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from thor_slam_tpu_torch.mapping import TsdfGrid, make_decay, make_grid, make_recenter, make_scan_integrator
+    from thor_slam_tpu_torch.ops import sgm_cuda
+    from thor_slam_tpu_torch.pipeline import RGBDFrame
+    from thor_slam_tpu_torch.pipeline.mapper import DenseMapper, MapperConfig
+
+    config = config or MapperConfig()
+    processor, items = reuse["processor"], reuse["rgbd_items"]
+    product_ext = reuse["body_t_left"] @ processor.product_t_in_left
+    poses = [item["world_t_body"] @ product_ext for item in items]
+    failures: list[str] = []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    sgm_cuda.reset_counts()
+    frames = [processor.process(it["frame_set"], color_frame=it["color"], fetch=False) for it in items]
+    _sync(dev)
+    counts = {name: dict(c) for name, c in sgm_cuda.counts.items()}
+    ran, other = ("kernel", "plain") if kernels else ("plain", "kernel")
+    if counts["sgm_scan"][ran] != scan_launches * len(frames) or counts["sgm_winner_lr"][ran] < len(frames):
+        failures.append(f"SGM launches {counts} for {len(frames)} frames, not {scan_launches} scan launches each")
+    if any(c[other] for c in counts.values()):
+        failures.append(f"{other} SGM versions ran: {counts}")
+
+    mapper = DenseMapper(config, device=dev)
+    host_ms, device_ms_ = [], []
+    for frame, pose in zip(frames, poses):
+        h, d = _event_ms(dev, lambda: mapper.integrate(frame, pose))
+        host_ms.append(h)
+        device_ms_.append(d)
+    spec, grid = mapper.spec, mapper.grid
+    grid_bytes = sum(t.numel() * t.element_size() for t in grid)
+    depth_bytes = frames[0].depth_mm.numel() * frames[0].depth_mm.element_size()
+    color_bytes = frames[0].rgb.numel() * frames[0].rgb.element_size()
+    voxel_bytes = grid_bytes - grid.origin.numel() * 4
+    bound = bound_ms(2 * voxel_bytes + depth_bytes + color_bytes)  # grid read and written, depth and colour read
+    print(
+        f"mapping: grid {'x'.join(map(str, spec.dims))} at {spec.voxel_size_m} m, colour {spec.integrate_color}, "
+        f"{grid_bytes / 1e6:.1f} MB; {len(frames)} frames "
+        f"{frames[0].depth_mm.shape[1]}x{frames[0].depth_mm.shape[0]} (fetch=False); integrate ms: host "
+        f"(unsynchronized) median {statistics.median(host_ms[1:]):.3f}, device median "
+        f"{statistics.median(device_ms_[1:]):.3f} (first call: host {host_ms[0]:.3f}, device {device_ms_[0]:.3f}); "
+        f"bound {bound:.4f} ms ({(2 * voxel_bytes + depth_bytes + color_bytes) / 1e6:.1f} MB: the grid read and "
+        f"written, depth and colour read); recenters {mapper.stats.recenters}"
+    )
+
+    # The bulk integrator over the same frames and poses, from an empty grid
+    # at the mapper's origin: the sequential grid exactly (no recenter here).
+    intr = frames[0].intrinsics.matrix
+    intr4 = np.asarray([intr[0, 0], intr[1, 1], intr[0, 2], intr[1, 2]], np.float32)
+    depths = torch.stack([f.depth_mm for f in frames])
+    colors = torch.stack([f.rgb for f in frames])
+    cam_t_world = np.stack([np.linalg.inv(p).astype(np.float32) for p in poses])
+    scan = make_scan_integrator(spec, donate=True)
+    scanned = make_grid(spec, mapper._origin_host, device=dev)
+    _sync(dev)
+    t = time.perf_counter()
+    scan(scanned, depths, colors, cam_t_world, intr4)
+    _sync(dev)
+    scan_ms = 1e3 * (time.perf_counter() - t) / len(frames)
+    if mapper.stats.recenters == 0 and not all(torch.equal(a, b) for a, b in zip(scanned, grid)):
+        failures.append("the bulk integrator's grid differs from the sequential integrates'")
+    del scanned
+
+    # Maintenance passes, timed on a copy of the grid.
+    copy = TsdfGrid(*(t.clone() for t in grid))
+    decay_ms = sync_ms(dev, lambda: make_decay(spec, donate=True)(copy, 0.95))
+    recenter = make_recenter(spec, donate=True)
+    recenter_ms = sync_ms(dev, lambda: recenter(copy, MAP_FORCED_SHIFT), reps=1)
+    del copy
+    cloud = []
+    cloud_ms = sync_ms(dev, lambda: cloud.append(mapper.surface_cloud()))
+    meshes = []
+    mesh_ms = sync_ms(dev, lambda: meshes.append(mapper.mesh()))
+    slices = []
+    esdf_ms = sync_ms(dev, lambda: slices.append(mapper.esdf_slice()))
+    mesh, (dist, occ, obs, _) = meshes[-1], slices[-1]
+    peak = torch.cuda.max_memory_allocated() / 2**20 if dev.type == "cuda" else float("nan")
+    print(
+        f"mapping: bulk integrate {scan_ms:.3f} ms a frame over {len(frames)}; decay {decay_ms:.3f} ms; recenter by "
+        f"{MAP_FORCED_SHIFT} {recenter_ms:.3f} ms; surface cloud {cloud_ms:.3f} ms ({len(cloud[-1][0])} points); mesh "
+        f"{mesh_ms:.3f} ms ({len(mesh.vertices)} vertices, {len(mesh.triangles)} triangles, budget hit "
+        f"{mesh.vertex_budget_hit}); costmap slice {esdf_ms:.3f} ms ({int(occ.sum())} occupied / {int(obs.sum())} "
+        f"observed cells); peak device memory {peak:.1f} MiB"
+    )
+    if not len(mesh.triangles) > 0 or mesh.vertex_budget_hit:
+        failures.append(f"mesh: {len(mesh.triangles)} triangles, budget hit {mesh.vertex_budget_hit}")
+    if not occ.any():
+        failures.append("costmap: no occupied cell")
+
+    # Synchronizing runtime calls per integrate of a device frame.
+    syncs = []
+    if dev.type == "cuda":
+        profiled = DenseMapper(config, device=dev)
+        _sync(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for frame, pose in zip(frames, poses):
+                with record_function("phase:integrate"):
+                    profiled.integrate(frame, pose)
+            _sync(dev)
+        spans, inside = _profiled_spans(prof, ("integrate",))
+        syncs = [inside(span) for span in spans["integrate"]]
+        del profiled
+        if len(syncs) != len(frames) or any(syncs):
+            failures.append(f"synchronizing runtime calls per integrate {syncs}")
+    print(f"mapping: synchronizing runtime calls per integrate of a device frame ({', '.join(_SYNC_CALLS)}): {syncs}")
+
+    # Accuracy: the same frames and poses with the renderer's true depth.
+    truth = DenseMapper(config, device=dev)
+    tails = []
+    for frame, pose, item in zip(frames, poses, items):
+        true_mm = _truth_mm(item["truth"])
+        truth.integrate(RGBDFrame(rgb=frame.rgb, depth_mm=true_mm, intrinsics=frame.intrinsics,
+                                  timestamp=frame.timestamp, camera_name=frame.camera_name), pose)
+        est = frame.depth_mm.cpu().numpy().astype(np.float64)
+        valid = (est > 0) & (true_mm > 0)
+        tails.append((est - true_mm)[valid] / 1000.0)
+    tail = np.concatenate(tails)
+    beyond = float(np.mean(tail > spec.truncation_m))
+    seen, true_seen = grid.weight > 0, truth.grid.weight > 0
+    both = seen & true_seen
+    near_side = seen & (grid.tsdf >= 0)
+    share = float(both.sum() / seen.sum())
+    near_share = float((near_side & true_seen).sum() / near_side.sum())
+    recall = float(both.sum() / true_seen.sum())
+    diff = (grid.tsdf - truth.grid.tsdf).abs()
+    med = float(diff[both].median())
+    band = both & (truth.grid.tsdf.abs() < spec.truncation_m)
+    band_med = float(diff[band].median())
+    max_err = MAP_MAX_MEDIAN_TSDF_ERR_VOX * spec.voxel_size_m
+    print(
+        f"mapping: against the renderer's true depth: {int(seen.sum())} voxels observed ({int(true_seen.sum())} in "
+        f"the truth grid); observed there too: {share:.4f} of all, {near_share:.4f} of those on the near side of "
+        f"the SGM surface (tsdf >= 0; bar >= {MAP_MIN_TRUTH_SHARE}); the truth grid's observed in the SGM grid "
+        f"{recall:.4f} (bar >= {MAP_MIN_TRUTH_SHARE}); the product's valid pixels more than the truncation band "
+        f"({spec.truncation_m} m) beyond the truth {beyond:.4f}; median |dtsdf| {med:.5f} m on the voxels both "
+        f"observe, {band_med:.5f} m on the {int(band.sum())} of them inside the truth's truncation band (bars <= "
+        f"{max_err} m)"
+    )
+    if not min(near_share, recall) >= MAP_MIN_TRUTH_SHARE or not max(med, band_med) <= max_err:
+        failures.append(f"accuracy: near-side share {near_share:.4f}, recall {recall:.4f}, median |dtsdf| "
+                        f"{med:.5f} / {band_med:.5f} m")
+    if failures:
+        raise AssertionError("mapping phase: " + "; ".join(failures))
+    return {name: c[ran] for name, c in counts.items()}
+
+
+def run_runner(dev, klt_levels: int, scan_launches: int, runner_sources, kernels: bool = True) -> dict:
+    """The port's ``run_pipeline.run`` as a user calls it, on the card, for
+    RUNNER_TICKS ticks of RUNNER_CONFIG (read as ``from_dict`` reads the
+    YAML). ``runner_sources`` are the config's synthetic sources with their
+    frames rendered ahead (the same frames the runner would render); the
+    engine the runner builds is logged (``log_finalized``) to count its
+    keyframes. Holds rc 0, the ``Dense map:`` line and the launch identities
+    of its ticks and RGB-D frames. Returns the launches."""
+    import contextlib
+    import io
+
+    from thor_slam_tpu_torch.ops import sgm_cuda
+    from thor_slam_tpu_torch.scripts import run_pipeline, run_slam
+    from thor_slam_tpu_torch.utils.config import RunConfig
+
+    cfg = RunConfig.from_dict(RUNNER_CONFIG)
+    logs, at_ticks = [], []
+    build_engine, build_sources = run_slam.build_engine, run_slam.build_synthetic_sources
+
+    def all_counts() -> dict:
+        return {**_counts(), **{name: dict(c) for name, c in sgm_cuda.counts.items()}}
+
+    def logged_engine(cfg, device=None):
+        engine = build_engine(cfg, device)
+        logs.append(log_finalized(engine))
+        initialize = engine.initialize
+
+        def counted_initialize(*args, **kwargs):
+            # The deployed watchdog's prewarm runs the masked-camera path
+            # once here: the ticks' identities hold on the counts after it.
+            out = initialize(*args, **kwargs)
+            _sync(dev)
+            at_ticks.append(all_counts())
+            return out
+
+        engine.initialize = counted_initialize
+        return engine
+
+    out = io.StringIO()
+    run_slam.build_engine, run_slam.build_synthetic_sources = logged_engine, lambda cfg: runner_sources
+    try:
+        _sync(dev)
+        _reset_counts()
+        sgm_cuda.reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run_pipeline.run(cfg, max_frames=RUNNER_TICKS, rgbd_every=RGBD_EVERY, device=dev)
+        _sync(dev)
+        run_s = time.perf_counter() - t
+    finally:
+        run_slam.build_engine, run_slam.build_synthetic_sources = build_engine, build_sources
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"runner: {line}")
+    (log,), (init,) = logs, at_ticks
+    counts = all_counts()
+    ticks = {k: {v: n - init[k][v] for v, n in c.items()} for k, c in counts.items()}
+    r = dict(tick_ms=[None] * len(log), keyframes=int(sum(bool(e["diag"]["refreshed"]) for e in log)), counts=ticks)
+    failures: list[str] = []
+    if rc != 0 or "\nDense map: " not in "\n" + text or len(log) != RUNNER_TICKS:
+        failures.append(f"runner: rc {rc}, {len(log)} finalized ticks, a 'Dense map:' line: {'Dense map: ' in text}")
+    in_ticks = _check_counts("runner", r, klt_levels, failures, kernels)
+    rgbd_frames = RUNNER_TICKS // RGBD_EVERY
+    if in_ticks["sgm_scan"] != scan_launches * rgbd_frames or in_ticks["sgm_winner_lr"] < rgbd_frames:
+        failures.append(f"runner: SGM launches {ticks} for {rgbd_frames} RGB-D frames")
+    print(f"runner: {RUNNER_TICKS} ticks of run_pipeline.run (deployed backend, 4 x 640x400, colour "
+          f"{COLOR_RESOLUTION[0]}x{COLOR_RESOLUTION[1]}, mapping at {'x'.join(map(str, cfg.mapping.dims))}) in "
+          f"{run_s:.1f} s, keyframes {r['keyframes']}; launch counts after initialize {json.dumps(ticks)}, in "
+          f"initialize (the watchdog's prewarm) {json.dumps(init)}")
+    if failures:
+        raise AssertionError("runner phase: " + "; ".join(failures))
+    ran = "kernel" if kernels else "plain"
+    return {k: c[ran] for k, c in counts.items()}
 
 
 #: Runtime calls that put work on the device, as torch.profiler names them.
@@ -1847,6 +2254,7 @@ def tick_launches(dev, width=640, height=400, max_keypoints=512) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -1909,21 +2317,44 @@ def main() -> int:
         t0 = time.perf_counter()
         deployed_run = run_full_engine(dev, inputs, label="deployed", stage_solves=False, **DEPLOYED_MODES)
         phases["deployed"] = check_full_engine(deployed_run, label="deployed", want_light=True)
+        # The profiled calls are counted, not timed: the later phases' frames
+        # render in the pool meanwhile.
+        from thor_slam_tpu_torch.scripts.run_slam import build_synthetic_sources
+        from thor_slam_tpu_torch.utils.config import RunConfig
+
+        mono_inputs = start_mono_inputs(pool=pool)
+        runner_sources = build_synthetic_sources(RunConfig.from_dict(RUNNER_CONFIG))
+        deliver_runner = submit_renders(pool, runner_sources[0], RUNNER_TICKS)
         t1 = time.perf_counter()
         syncs = sync_calls_by_tick_type(dev, inputs)
         print(f"deployed: the profiled calls took {time.perf_counter() - t1:.1f} s")
         print(f"deployed: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['deployed'])}")
+        t0 = time.perf_counter()
+        mono_inputs = mono_inputs()
+        deliver_runner()
+        print(f"renders of the mono and runner phases: waited {time.perf_counter() - t0:.1f} s after the "
+              "profiled calls")
         t0 = time.perf_counter()
         phases["deep"] = run_deep(dev, inputs, reuse)
         print(f"deep: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['deep'])}")
         del inputs
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        phases["mono"] = run_mono_phases(dev, reuse, render_mono_inputs(pool=pool))
+        phases["mono"] = run_mono_phases(dev, reuse, mono_inputs)
         print(f"mono phases took {time.perf_counter() - t0:.1f} s ({workers} render workers), "
               f"launches {json.dumps(phases['mono'])}")
+        del mono_inputs
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["mapping"] = run_mapping(dev, reuse, scan["launches_per_call"])
+    print(f"mapping: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['mapping'])}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["runner"] = run_runner(dev, reuse["klt_levels"], scan["launches_per_call"], runner_sources)
+    print(f"runner: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['runner'])}")
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phases["defer_sync"] = run_defer_sync(dev, reuse)
     phases["half"] = run_half(dev, reuse)
@@ -1965,6 +2396,7 @@ def main() -> int:
         f"ranking by launches x (device ms - bound ms) per period of {RGBD_EVERY} ticks: "
         + ", ".join(f"{k['name']} {k['loss_ms_per_period']:.4f} ms" for k in ranked)
     )
+    print(f"run: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

@@ -2,13 +2,15 @@
 
 ``thor_slam_tpu_torch`` keeps copies of ``geometry``, ``camera.types``,
 ``camera.rig``, ``camera.sources.synthetic``, ``slam.interface``,
-``utils.evaluation``, ``engine.backends.light`` and
-``engine.pipeline_exec``, so that it imports nothing of the JAX package.
-These tests hold each copy to the module it copies on the same seeded
-inputs (all exact: the copies run the same numpy code; the light module's
-code is the original's, line for line; the pipeline executor asks a
-record's event, not its device array, whether it is ready), and guard that
-no module of the port, nor ``chip_smoke.py``, loads JAX or the JAX package.
+``utils.evaluation``, ``engine.backends.light``, ``engine.pipeline_exec``,
+``pipeline.bus``, ``utils.config`` and ``utils.profiling``, so that it
+imports nothing of the JAX package. These tests hold each copy to the
+module it copies on the same seeded inputs (all exact: the copies run the
+same numpy code; the light module's and the bus's code is the original's,
+line for line; the pipeline executor asks a record's event, not its device
+array, whether it is ready; the config reads the deployed YAML alike), and
+guard that no module of the port, nor ``chip_smoke.py``, loads JAX, the
+JAX package, pyyaml or cv2.
 """
 
 from __future__ import annotations
@@ -25,15 +27,21 @@ from thor_slam_tpu.camera.rig import CameraRig as JaxCameraRig
 from thor_slam_tpu.camera.sources import synthetic as jsyn
 from thor_slam_tpu.engine import pipeline_exec as jpipe
 from thor_slam_tpu.engine.backends import light as jlight
+from thor_slam_tpu.pipeline import bus as jbus
 from thor_slam_tpu.slam import interface as jiface
+from thor_slam_tpu.utils import config as jconfig
 from thor_slam_tpu.utils import evaluation as jeval
+from thor_slam_tpu.utils import profiling as jprof
 from thor_slam_tpu_torch import geometry as tgeom
 from thor_slam_tpu_torch.camera.rig import CameraRig as PortCameraRig
 from thor_slam_tpu_torch.camera.sources import synthetic as tsyn
 from thor_slam_tpu_torch.engine import pipeline_exec as tpipe
 from thor_slam_tpu_torch.engine.backends import light as tlight
+from thor_slam_tpu_torch.pipeline import bus as tbus
 from thor_slam_tpu_torch.slam import interface as tiface
+from thor_slam_tpu_torch.utils import config as tconfig
 from thor_slam_tpu_torch.utils import evaluation as teval
+from thor_slam_tpu_torch.utils import profiling as tprof
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -278,8 +286,9 @@ def test_pipeline_executor_matches_reference(depth, defer, script):
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """A fresh interpreter imports every module of the port and
-    ``chip_smoke`` (the two-view bootstrap's among them); neither JAX, any
-    ``thor_slam_tpu`` module, pyyaml nor cv2 loads."""
+    ``chip_smoke`` (the two-view bootstrap's, the mapper's and the runners'
+    among them); neither JAX, any ``thor_slam_tpu`` module, pyyaml nor cv2
+    loads."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import thor_slam_tpu_torch as pkg\n"
@@ -290,9 +299,104 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
         "roots = ('jax', 'jaxlib', 'thor_slam_tpu', 'yaml', 'cv2')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "assert not bad, bad\n"
-        "assert 'thor_slam_tpu_torch.engine.epipolar' in mods, mods\n"
+        "for name in ('engine.epipolar', 'pipeline.mapper', 'mapping.mesh', 'scripts.run_pipeline'):\n"
+        "    assert 'thor_slam_tpu_torch.' + name in mods, mods\n"
         "print(len(mods))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 30
+
+
+@pytest.mark.parametrize("name", ["Topic", "Subscription", "MessageBus"])
+def test_bus_is_the_reference_code(name):
+    import inspect
+
+    assert inspect.getsource(getattr(tbus, name)) == inspect.getsource(getattr(jbus, name))
+
+
+def test_bus_delivers_as_the_reference():
+    """One script of publishes, subscriptions and reads on both buses: the
+    same sequence numbers, messages, drops and topic names."""
+    logs = []
+    for mod in (jbus, tbus):
+        bus, log, seen = mod.MessageBus(), [], []
+        keep = bus.topic("/rgbd", queue_size=3)
+        latest = bus.topic("/imu", queue_size=5, keep_latest_only=True)
+        a, b, cb = keep.subscribe(), latest.subscribe(), keep.subscribe(seen.append)
+        for i in range(6):
+            log.append((keep.publish(i), latest.publish(10 * i)))
+        log += [a.try_get(), a.get(timeout=0.01), len(a), a.latest(), a.try_get(), a.dropped]
+        log += [b.latest(), b.dropped, b.get(timeout=0.01), bus.names(), list(seen)]
+        keep.unsubscribe(cb)
+        keep.publish(99)
+        log += [a.try_get(), len(seen), bus.topic("/rgbd", queue_size=1) is keep]
+        logs.append(log)
+    assert logs[0] == logs[1]
+
+
+def _fields(obj):
+    """A config dataclass tree as plain values."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _fields(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, list):
+        return [_fields(x) for x in obj]
+    return obj
+
+
+def test_config_reads_the_deployed_yaml_alike():
+    """``from_dict`` on the deployed YAML's values (read here with pyyaml)
+    and ``load_config`` on the file give the reference's config, field for
+    field, and the same derived values."""
+    import yaml
+
+    path = REPO / "config" / "slam_config.yaml"
+    data = yaml.safe_load(path.read_text())
+    want, got = jconfig.RunConfig.from_dict(data), tconfig.RunConfig.from_dict(data)
+    assert _fields(got) == _fields(want)
+    assert got.num_cameras == want.num_cameras and got.rgbd_camera_ips() == want.rgbd_camera_ips()
+    assert _fields(tconfig.load_config(path)) == _fields(jconfig.load_config(path))
+    assert _fields(tconfig.RunConfig()) == _fields(jconfig.RunConfig())
+
+
+@pytest.mark.parametrize("text", [
+    "cameras: [{stereo: true}]",
+    "cameras: [{ip: '999.1.1.1'}]",
+    "mapping: {dims: [8, 8]}",
+    "fps: [",
+    "- 1\n- 2",
+    "backend: {max_keypoints: many}",
+])
+def test_config_errors_match_reference(tmp_path, text):
+    path = tmp_path / "bad.yaml"
+    path.write_text(text)
+    errors = []
+    for mod in (jconfig, tconfig):
+        with pytest.raises(mod.ConfigError) as e:
+            mod.load_config(path)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+
+
+def test_profiling_matches_reference():
+    """Rate, EMA timers, status line and snapshot equal on one script of
+    ticks and stage times; the port's copy has no ``jax_trace``."""
+    out = []
+    for mod in (jprof, tprof):
+        stats = mod.PipelineStats()
+        for t in (0.0, 0.03, 0.07, 0.1, 0.135):
+            stats.fps.tick(t)
+        for name, times in (("track", (30.0, 12.5, 40.0)), ("sync", (1.0, 2.0))):
+            timer = stats.stage(name)
+            for ms in times:  # the EMA update of StageTimer.time(), fed fixed times
+                timer.ema_ms = ms if timer.count == 0 else (1 - timer.alpha) * timer.ema_ms + timer.alpha * ms
+                timer.count += 1
+        stats.max_time_delta_ms, stats.num_inliers, stats.tracking_state = 4.25, 812, "TRACKING"
+        with stats.stage("map").time():
+            pass
+        stats.stage("map").ema_ms = 0.0
+        out.append((stats.fps.rate_hz, stats.status_line(17), stats.snapshot(17)))
+    assert out[0] == out[1]
+    assert not hasattr(tprof, "jax_trace")

@@ -1,4 +1,5 @@
-"""Carry tracker state and camera setup between the reference and the port.
+"""Carry tracker state, camera setup and TSDF grids between the reference
+and the port.
 
 Both directions go through numpy arrays, so this module imports no JAX:
 the caller turns the reference's ``CameraSetup`` / ``TrackerState`` into
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from thor_slam_tpu_torch.engine.tracker import CameraSetup, TrackerState
+from thor_slam_tpu_torch.mapping.tsdf import TsdfGrid
 
 _BOOL_FIELDS = frozenset({"lm_valid", "lm_robs_valid", "lm_pending", "stereo_mask"})
 _INT_FIELDS = frozenset({"lm_id", "lm_id_counter", "frame_idx", "untracked_streak", "last_kf_frame"})
@@ -57,3 +59,17 @@ def state_to_numpy(state: TrackerState) -> dict[str, np.ndarray]:
         a = getattr(state, f).detach().cpu().numpy()
         out[f] = a.view(np.uint32) if f == "lm_desc" else a
     return out
+
+
+def grid_to_torch(arrays: Any, device: torch.device | str) -> TsdfGrid:
+    """A TSDF grid's fields as arrays (the reference's ``TsdfGrid`` through
+    ``np.asarray``, or a dict) -> the port's grid of f32 tensors."""
+    return TsdfGrid(**{
+        f: torch.as_tensor(np.array(_field(arrays, f), np.float32, order="C"), device=device)
+        for f in TsdfGrid._fields
+    })
+
+
+def grid_to_numpy(grid: TsdfGrid) -> dict[str, np.ndarray]:
+    """The port's grid -> numpy arrays by field name (f32, as the reference's)."""
+    return {f: getattr(grid, f).detach().cpu().numpy() for f in TsdfGrid._fields}
