@@ -114,14 +114,30 @@ tree it shows which gate an outcome of that phase turned on. It
    ticks on the card with RUNNER_CONFIG, the deployed YAML's values with the
    synthetic rig (4 sources at 640x400, colour 1280x800) and mapping on at
    the deployed grid; asserts rc 0, the ``Dense map:`` line and the gather,
-   FAST and SGM launch identities of its ticks and RGB-D frames.
+   FAST and SGM launch identities of its ticks and RGB-D frames;
+10. the EuRoC runner (``euroc:`` lines) at EuRoC's own geometry: the port's
+   ``make_euroc_synthetic`` writes 200 frames of one stereo camera at
+   752x480, 20 fps, with its 200 Hz IMU, on an orbit at 0.7 rad/s that
+   revisits its start near frame 180 (EUROC_ARGS; rendered by the pool
+   during the deployed phase's profiled calls) into a temporary directory;
+   both kernels are held to their plain versions on its own frames (FAST on
+   the (2, 480, 752) pair, the last tile column ragged; the pair gather
+   with M = 1 x 512); then the port's ``run_euroc.main`` runs in this
+   process on the card at its defaults (IMU with the accelerometer, BA,
+   loop closure, light ticks). Prints its output, then the frame count,
+   fps, odometry, world-frame and map-trajectory ATE, closures and the ms
+   per ``process_frames`` (median, p95, max); asserts rc 0, TRACKING from
+   the second frame on, the gather and FAST identities of its ticks, and
+   an odometry ATE within EUROC_MAX_ATE_FACTOR of the JAX runner's on the
+   identical sequence (EUROC_REF_ATE_CM, measured on the CPU).
 
 Every phase's frames are rendered ahead by a pool of worker processes (a
 frame is a deterministic function of its index), which are idle while ticks
-are timed and stopped before the result is printed; the mono and runner
-phases' frames render while the deployed phase's profiled calls, which are
-counted and not timed, run. The line ``run: <s> s`` gives the whole run's
-seconds from the start of ``main``.
+are timed and stopped before the result is printed; the mono, runner and
+EuRoC phases' frames render while the deployed phase's profiled calls,
+which are counted and not timed, run. The line ``run: <s> s on <card>``
+gives the whole run's seconds from the start of ``main`` and the card's
+name and power limit again.
 
 Any failure exits non-zero without printing a result. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel
@@ -137,9 +153,11 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
@@ -279,6 +297,14 @@ RUNNER_CONFIG = {
         "slice_band_m": [0.0, 1.0], "esdf_max_distance_m": 2.0, "integrate_every": 1,
     },
 }
+# Phase 10: the port's EuRoC runner at EuRoC's own geometry (one stereo
+# camera, 752x480, 20 fps, 200 Hz IMU) on a synthetic sequence whose orbit
+# (0.7 rad/s) revisits its start near frame 180, at the runner's defaults.
+EUROC_ARGS = ("--width", "752", "--height", "480", "--fps", "20", "--frames", "200", "--trajectory-rate", "0.7")
+# The JAX package's runner on the identical sequence (python -m
+# scripts.run_euroc --cpu, on the CPU: odometry ATE, closures, map ATE).
+EUROC_REF_ATE_CM, EUROC_REF_LOOPS, EUROC_REF_MAP_ATE_CM = 3.50, 0, 3.35
+EUROC_MAX_ATE_FACTOR = 2.0  # the port's odometry ATE on the card against the reference's
 # --tick-launches: ticks under the profiler, then unprofiled ticks.
 PROFILE_TICKS = 28  # the slice refreshes about every 13th tick: two keyframes
 TIMED_TICKS = 30
@@ -2118,6 +2144,131 @@ def run_runner(dev, klt_levels: int, scan_launches: int, runner_sources, kernels
     return {k: c[ran] for k, c in counts.items()}
 
 
+def start_euroc_inputs(pool, out_dir, seq_args=EUROC_ARGS):
+    """Start rendering phase 10's sequence (the port's
+    ``make_euroc_synthetic`` with ``seq_args`` into ``out_dir``) in the
+    pool; returns a function that waits for the frames, writes the sequence
+    and returns its arguments."""
+    from thor_slam_tpu_torch.scripts import make_euroc_synthetic
+
+    args = make_euroc_synthetic.parse_args(["--out", str(out_dir), *seq_args])
+    source, traj = make_euroc_synthetic.build_source(args)
+    deliver = submit_renders(pool, [source], args.frames)
+
+    def finish():
+        deliver()
+        t = time.perf_counter()
+        imu_samples = make_euroc_synthetic.write_sequence(args, source, traj)
+        print(f"euroc: wrote {args.frames} stereo frames of {args.width}x{args.height} + {imu_samples} IMU samples "
+              f"in {time.perf_counter() - t:.1f} s")
+        return args
+
+    return finish
+
+
+def run_euroc_phase(dev, seq_args, kernels: bool = True) -> dict:
+    """Phase 10: the port's ``run_euroc.main`` in this process, on ``dev`` at
+    its defaults (IMU with the accelerometer, BA, loop closure, light ticks),
+    over the sequence of ``seq_args``. First both kernels against their
+    plain versions on the sequence's own frames; then the run, each
+    ``process_frames`` timed (the engine is synchronous: the device is
+    synchronized after each), the counts set to 0 after ``initialize``.
+    Holds rc 0, every frame tracked from the second on, the launch
+    identities and the odometry ATE against the JAX runner's on the same
+    sequence. Returns the launches."""
+    import contextlib
+    import io
+    import re
+
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.sources.dataset import EurocCameraSource
+    from thor_slam_tpu_torch.scripts import run_euroc
+    from thor_slam_tpu_torch.slam.interface import TrackingState
+    from thor_slam_tpu_torch.engine.tracker import TrackerParams
+
+    src = EurocCameraSource(seq_args.out, max_frames=2)
+    with CameraRig([src]) as rig:
+        frames = [rig.get_synchronized_frames() for _ in range(2)]
+        calibration = rig.calibration
+    max_keypoints = TrackerParams.__dataclass_fields__["max_keypoints"].default  # run_euroc's engine's
+    check_on_rig_frames(dev, "euroc", frames, calibration, max_keypoints, kernels)
+
+    engines, logs, tick_ms = [], [], []
+    build_engine = run_euroc.build_engine
+
+    def timed_engine(args, device):
+        engine = build_engine(args, device)
+        engines.append(engine)
+        logs.append(log_finalized(engine))
+        initialize, process = engine.initialize, engine.process_frames
+
+        def counted_initialize(*a, **k):
+            out = initialize(*a, **k)
+            _sync(dev)
+            _reset_counts()
+            return out
+
+        def timed_process(fs):
+            t = time.perf_counter()
+            pose = process(fs)
+            _sync(dev)
+            tick_ms.append(1e3 * (time.perf_counter() - t))
+            return pose
+
+        engine.initialize, engine.process_frames = counted_initialize, timed_process
+        return engine
+
+    out = io.StringIO()
+    run_euroc.build_engine = timed_engine
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = run_euroc.main(["--sequence", str(seq_args.out), *(["--cpu"] if dev.type == "cpu" else [])])
+        _sync(dev)
+    finally:
+        run_euroc.build_engine = build_engine
+    counts = _counts()
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"euroc: {line}")
+    (engine,), (log,) = engines, logs
+    params = engine._params
+    states = [e["state"] for e in log]
+    r = dict(tick_ms=tick_ms, keyframes=int(sum(bool(e["diag"]["refreshed"]) for e in log)), counts=counts)
+    failures: list[str] = []
+    tracked = re.search(r"^Tracked (\d+) frames in [\d.]+s \(([\d.]+) fps\)$", text, re.M)
+    ate = re.search(r"^ATE-RMSE: ([\d.]+) cm over \d+ poses \(([\d.]+) m path, (\d+) loop closures", text, re.M)
+    world = re.search(r"^world-frame live ATE-RMSE: ([\d.]+) cm", text, re.M)
+    kf = re.search(r"^map-trajectory ATE-RMSE: ([\d.]+) cm over (\d+) keyframes$", text, re.M)
+    if rc != 0 or not (tracked and ate and kf):
+        raise AssertionError(f"euroc phase: rc {rc}, output {text!r}")
+    frames_n = seq_args.frames
+    if int(tracked.group(1)) != frames_n or len(log) != frames_n or any(s != TrackingState.TRACKING for s in states[1:]):
+        failures.append(f"euroc: tracked {tracked.group(1)} of {frames_n} frames, "
+                        f"not TRACKING on ticks {[i for i, s in enumerate(states) if s != TrackingState.TRACKING]}")
+    launches = _check_counts("euroc", r, params.klt_levels, failures, kernels)
+    ate_cm, loops = float(ate.group(1)), int(ate.group(3))
+    if not ate_cm <= EUROC_MAX_ATE_FACTOR * EUROC_REF_ATE_CM:
+        failures.append(f"euroc: odometry ATE {ate_cm} cm over {EUROC_MAX_ATE_FACTOR} x the JAX runner's "
+                        f"{EUROC_REF_ATE_CM} cm")
+    light, half = sum(bool(e["light"]) for e in log), sum(bool(e["half"]) for e in log)
+    # The engine is synchronous: call i finalized tick i.
+    kinds = ["keyframe" if e["diag"]["refreshed"] else "light" if e["light"] else "full" for e in log]
+    by_kind = {k: [t for t, kind in zip(tick_ms, kinds) if kind == k] for k in ("keyframe", "light", "full")}
+    result = dict(
+        frames=frames_n, fps=float(tracked.group(2)), ate_cm=ate_cm, path_m=float(ate.group(2)), loops=loops,
+        world_ate_cm=float(world.group(1)) if world else None, map_ate_cm=float(kf.group(1)),
+        map_keyframes=int(kf.group(2)), keyframes=r["keyframes"], light_ticks=light, half_res_ticks=half,
+        ms_median=statistics.median(tick_ms), ms_p95=float(np.percentile(tick_ms, 95)), ms_max=max(tick_ms),
+        ms_median_by_tick_type={k: (len(v), statistics.median(v) if v else None) for k, v in by_kind.items()},
+        reference=dict(ate_cm=EUROC_REF_ATE_CM, loops=EUROC_REF_LOOPS, map_ate_cm=EUROC_REF_MAP_ATE_CM),
+        max_ate_cm=EUROC_MAX_ATE_FACTOR * EUROC_REF_ATE_CM, launches=launches,
+    )
+    print("euroc: " + json.dumps(result))
+    if failures:
+        raise AssertionError("euroc phase: " + "; ".join(failures))
+    return launches
+
+
 #: Runtime calls that put work on the device, as torch.profiler names them.
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
 _COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy")
@@ -2301,6 +2452,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     workers = min(RENDER_WORKERS, max(1, (os.cpu_count() or 2) - 2))
     pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    euroc_dir = tempfile.mkdtemp(prefix="chip_smoke_euroc_")
     try:
         t0 = time.perf_counter()
         launches, periods, reuse = run_slice(dev, scan["launches_per_call"], pool)
@@ -2325,6 +2477,7 @@ def main() -> int:
         mono_inputs = start_mono_inputs(pool=pool)
         runner_sources = build_synthetic_sources(RunConfig.from_dict(RUNNER_CONFIG))
         deliver_runner = submit_renders(pool, runner_sources[0], RUNNER_TICKS)
+        euroc_inputs = start_euroc_inputs(pool, euroc_dir)
         t1 = time.perf_counter()
         syncs = sync_calls_by_tick_type(dev, inputs)
         print(f"deployed: the profiled calls took {time.perf_counter() - t1:.1f} s")
@@ -2332,8 +2485,9 @@ def main() -> int:
         t0 = time.perf_counter()
         mono_inputs = mono_inputs()
         deliver_runner()
-        print(f"renders of the mono and runner phases: waited {time.perf_counter() - t0:.1f} s after the "
-              "profiled calls")
+        euroc_args = euroc_inputs()
+        print(f"renders of the mono, runner and euroc phases: waited {time.perf_counter() - t0:.1f} s after the "
+              "profiled calls (the sequence's files written)")
         t0 = time.perf_counter()
         phases["deep"] = run_deep(dev, inputs, reuse)
         print(f"deep: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['deep'])}")
@@ -2344,6 +2498,9 @@ def main() -> int:
         print(f"mono phases took {time.perf_counter() - t0:.1f} s ({workers} render workers), "
               f"launches {json.dumps(phases['mono'])}")
         del mono_inputs
+    except BaseException:
+        shutil.rmtree(euroc_dir, ignore_errors=True)
+        raise
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     torch.cuda.empty_cache()
@@ -2354,6 +2511,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phases["runner"] = run_runner(dev, reuse["klt_levels"], scan["launches_per_call"], runner_sources)
     print(f"runner: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['runner'])}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        phases["euroc"] = run_euroc_phase(dev, euroc_args)
+    finally:
+        shutil.rmtree(euroc_dir, ignore_errors=True)
+    print(f"euroc: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['euroc'])}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phases["defer_sync"] = run_defer_sync(dev, reuse)
@@ -2396,7 +2560,7 @@ def main() -> int:
         f"ranking by launches x (device ms - bound ms) per period of {RGBD_EVERY} ticks: "
         + ", ".join(f"{k['name']} {k['loss_ms_per_period']:.4f} ms" for k in ranked)
     )
-    print(f"run: {time.perf_counter() - t_start:.1f} s")
+    print(f"run: {time.perf_counter() - t_start:.1f} s on {nvidia_smi_line()}")
     print(json.dumps(record))
     device = {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))

@@ -3,14 +3,18 @@
 ``thor_slam_tpu_torch`` keeps copies of ``geometry``, ``camera.types``,
 ``camera.rig``, ``camera.sources.synthetic``, ``slam.interface``,
 ``utils.evaluation``, ``engine.backends.light``, ``engine.pipeline_exec``,
-``pipeline.bus``, ``utils.config`` and ``utils.profiling``, so that it
-imports nothing of the JAX package. These tests hold each copy to the
+``pipeline.bus``, ``utils.config``, ``utils.profiling``, ``camera.utils``,
+``camera.sources.dataset``, ``camera.sources.luxonis`` and
+``slam.adapters`` (``tests/test_torch_sources.py`` and
+``test_torch_adapters.py`` run those on the same inputs; here their code is
+held to the original's, line for line), so that it imports nothing of the
+JAX package. These tests hold each copy to the
 module it copies on the same seeded inputs (all exact: the copies run the
 same numpy code; the light module's and the bus's code is the original's,
 line for line; the pipeline executor asks a record's event, not its device
 array, whether it is ready; the config reads the deployed YAML alike), and
 guard that no module of the port, nor ``chip_smoke.py``, loads JAX, the
-JAX package, pyyaml or cv2.
+JAX package, pyyaml, cv2, depthai or rclpy.
 """
 
 from __future__ import annotations
@@ -286,9 +290,9 @@ def test_pipeline_executor_matches_reference(depth, defer, script):
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """A fresh interpreter imports every module of the port and
-    ``chip_smoke`` (the two-view bootstrap's, the mapper's and the runners'
-    among them); neither JAX, any ``thor_slam_tpu`` module, pyyaml nor cv2
-    loads."""
+    ``chip_smoke`` (the two-view bootstrap's, the mapper's, the runners',
+    the sources' and the ROS adapters' among them); neither JAX, any
+    ``thor_slam_tpu`` module, pyyaml, cv2, depthai nor rclpy loads."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import thor_slam_tpu_torch as pkg\n"
@@ -296,16 +300,44 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "roots = ('jax', 'jaxlib', 'thor_slam_tpu', 'yaml', 'cv2')\n"
+        "roots = ('jax', 'jaxlib', 'thor_slam_tpu', 'yaml', 'cv2', 'depthai', 'rclpy')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in roots)\n"
         "assert not bad, bad\n"
-        "for name in ('engine.epipolar', 'pipeline.mapper', 'mapping.mesh', 'scripts.run_pipeline'):\n"
+        "for name in ('engine.epipolar', 'pipeline.mapper', 'mapping.mesh', 'scripts.run_pipeline', 'camera.utils',\n"
+        "             'camera.sources.dataset', 'camera.sources.luxonis', 'slam.adapters.external_ros',\n"
+        "             'slam.adapters.ros_bridge', 'slam.adapters.null_engine', 'scripts.run_euroc',\n"
+        "             'scripts.make_euroc_synthetic', 'scripts.find_cameras', 'scripts.publish_odom_tf'):\n"
         "    assert 'thor_slam_tpu_torch.' + name in mods, mods\n"
         "print(len(mods))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30
+    assert int(proc.stdout.split()[-1]) >= 70
+
+
+#: module -> names whose code the port's copy carries unchanged (but the
+#: package's name in the imports).
+COPIED_CODE = {
+    "camera.utils": ["parse_urdf_transform", "load_rig_extrinsics_from_urdf", "prompt_for_resolution",
+                     "get_luxonis_device"],
+    "camera.sources.dataset": ["_load_image", "EurocCameraSource", "RecordedCameraSource", "record_frames"],
+    "camera.sources.luxonis": ["LuxonisResolution", "select_rgb_sensor_resolution", "validate_camera_config",
+                               "LuxonisCameraConfig", "scale_intrinsics_to_output", "extrinsics_cm_to_m"],
+    "slam.adapters.null_engine": ["NullSlamEngine"],
+    "slam.adapters.external_ros": ["extract_cameras", "split_stamp", "image_wire", "distortion_wire",
+                                   "projection_matrix", "camera_tf_list", "latest_imu_sample", "ExternalRosEngine"],
+    "slam.adapters.ros_bridge": ["pack_xyz_cloud", "pack_xyzrgb_cloud"],
+}
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m, names in COPIED_CODE.items() for n in names])
+def test_copied_code_is_the_reference_code(module, name):
+    import importlib
+    import inspect
+
+    want = inspect.getsource(getattr(importlib.import_module(f"thor_slam_tpu.{module}"), name))
+    got = inspect.getsource(getattr(importlib.import_module(f"thor_slam_tpu_torch.{module}"), name))
+    assert got == want.replace("thor_slam_tpu.", "thor_slam_tpu_torch.")
 
 
 @pytest.mark.parametrize("name", ["Topic", "Subscription", "MessageBus"])

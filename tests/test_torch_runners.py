@@ -161,16 +161,38 @@ def test_engine_takes_the_reference_runners_arguments():
     engine.shutdown()
 
 
-@pytest.mark.parametrize("module", [run_slam, run_pipeline], ids=["run_slam", "run_pipeline"])
-def test_unported_branches_return_2(module, caplog):
-    hardware = RunConfig.from_dict({"cameras": [{"ip": "192.168.2.21"}]})
+@pytest.mark.parametrize("name", ["run_slam", "run_pipeline"])
+def test_unported_branches_return_2(name, caplog):
+    """A config that lists cameras without ``synthetic.enabled`` needs depthai
+    and ``--ros`` needs rclpy: without them, both packages' runners log the
+    same errors (the ``ImportError`` of ``LuxonisCameraSource``, "--ros
+    requested but rclpy is not installed") and return 2. ``main`` checks
+    ``--ros`` before reading the config."""
+    import importlib
+
+    from thor_slam_tpu.camera.sources.luxonis import HAVE_DEPTHAI
+    from thor_slam_tpu.slam.adapters.ros_bridge import HAVE_ROS
+
+    if HAVE_DEPTHAI or HAVE_ROS:
+        pytest.skip("depthai or rclpy present")
+    hardware = {"cameras": [{"ip": "192.168.2.21"}]}
+    logs = []
+    for module, config in ((importlib.import_module(f"scripts.{name}"), JaxRunConfig),
+                           (importlib.import_module(f"thor_slam_tpu_torch.scripts.{name}"), RunConfig)):
+        kw = {} if module.__name__.startswith("scripts.") else {"device": "cpu"}
+        caplog.clear()
+        with caplog.at_level(logging.ERROR):
+            assert module.run(config.from_dict(hardware), max_frames=1, **kw) == 2
+            assert module.run(config.from_dict(CFG), max_frames=1, use_ros=True, **kw) == 2
+        logs.append([(r.name, r.getMessage()) for r in caplog.records if r.levelno >= logging.ERROR])
+    assert logs[0] == logs[1]
+    assert "depthai is not installed" in logs[1][0][1]
+    assert logs[1][1] == (name, "--ros requested but rclpy is not installed")
+    module = importlib.import_module(f"thor_slam_tpu_torch.scripts.{name}")
+    caplog.clear()
     with caplog.at_level(logging.ERROR):
-        assert module.run(hardware, max_frames=1, device="cpu") == 2
-        assert module.run(RunConfig.from_dict(CFG), max_frames=1, use_ros=True, device="cpu") == 2
-        assert module.main(["--ros"]) == 2
-    text = caplog.text
-    assert "hardware camera sources" in text and "#16" in text
-    assert text.count("ROS 2 adapters") == 2
+        assert module.main(["--ros", "--config", "no/such/file.yaml"]) == 2
+    assert [r.getMessage() for r in caplog.records] == ["--ros requested but rclpy is not installed"]
 
 
 def test_save_flags_need_the_mapper():

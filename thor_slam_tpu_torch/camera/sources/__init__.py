@@ -1,5 +1,11 @@
-"""Camera sources of the port: the deterministic synthetic rig."""
+"""Camera sources of the port: the synthetic rig and dataset replay (the
+hardware source, :mod:`.luxonis`, is imported where it is used)."""
 
+from thor_slam_tpu_torch.camera.sources.dataset import (
+    EurocCameraSource,
+    RecordedCameraSource,
+    record_frames,
+)
 from thor_slam_tpu_torch.camera.sources.synthetic import (
     OrbitTrajectory,
     SyntheticCameraSource,
@@ -9,9 +15,12 @@ from thor_slam_tpu_torch.camera.sources.synthetic import (
 )
 
 __all__ = [
+    "EurocCameraSource",
     "OrbitTrajectory",
+    "RecordedCameraSource",
     "SyntheticCameraSource",
     "SyntheticRigSpec",
     "SyntheticWorld",
     "make_synthetic_rig",
+    "record_frames",
 ]

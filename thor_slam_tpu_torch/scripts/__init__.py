@@ -1,2 +1,3 @@
-"""Entry points of the port: ``python -m thor_slam_tpu_torch.scripts.run_slam``
-and ``python -m thor_slam_tpu_torch.scripts.run_pipeline``."""
+"""Entry points of the port: ``python -m thor_slam_tpu_torch.scripts.<name>``
+with ``run_slam``, ``run_pipeline``, ``run_euroc`` and ``make_euroc_synthetic``
+(the accuracy path), ``find_cameras`` and ``publish_odom_tf``."""

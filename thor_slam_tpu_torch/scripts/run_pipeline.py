@@ -8,8 +8,10 @@ published as aligned (rgb, 16UC1-millimeter depth) pairs on bus topics
 ``/camera_{i}/rgb|depth``. With ``--map`` (or ``mapping.enabled``) a
 :class:`~thor_slam_tpu_torch.pipeline.mapper.DenseMapper` on the same
 device integrates each RGB-D frame where it was produced
-(``fetch=False``), at the pose nearest in time. Everything runs on the
-card unless ``--device`` says otherwise.
+(``fetch=False``), at the pose nearest in time. Sources are built as
+``run_slam`` builds them (synthetic or hardware); ``--ros`` also publishes
+the RGB-D streams (host copies, ``frame.fetched()``), the surface cloud and
+the mesh. Everything runs on the card unless ``--device`` says otherwise.
 
 Usage:
     python -m thor_slam_tpu_torch.scripts.run_pipeline --synthetic --frames 60 --rgbd-every 5
@@ -49,20 +51,25 @@ def run(
     from thor_slam_tpu_torch.utils.platform import select_device
     from thor_slam_tpu_torch.utils.profiling import PipelineStats, RateCounter
 
-    if use_ros:
-        logger.error("%s", rs.ROS_NOT_PORTED)
-        return 2
-    if not (cfg.synthetic.enabled or not cfg.cameras):
-        logger.error("%s", rs.HARDWARE_NOT_PORTED)
-        return 2
     device = select_device(device)
-    sources, rig_ext = rs.build_synthetic_sources(cfg)
+    try:
+        sources, rig_ext, imu_ext = rs.build_sources(cfg)
+    except ImportError as e:  # depthai absent: say so, don't traceback
+        logger.error("%s", e)
+        return 2
 
     bus = MessageBus()
     pose_topic = bus.topic("/slam/pose", queue_size=30)
     stats = PipelineStats()
+    ros_bridge = None
+    if use_ros:
+        if rs.ros_missing(use_ros, logger):
+            return 2
+        from thor_slam_tpu_torch.slam.adapters.ros_bridge import RosBridge
+
+        ros_bridge = RosBridge()
     engine = rs.build_engine(cfg, device)
-    rig = rs.build_rig(cfg, sources, rig_ext)
+    rig = rs.build_rig(cfg, sources, rig_ext, imu_ext)
 
     # RGB-D processors: explicit nvblox list, else enable_rgbd flags, else
     # (synthetic mode) the first camera.
@@ -165,10 +172,13 @@ def run(
                 pose_hist.append((pose.timestamp, pose.to_4x4_matrix()))
                 if len(pose_hist) > 60:
                     del pose_hist[:-60]
+                if ros_bridge is not None:
+                    ros_bridge.publish_pose(pose)
+                    ros_bridge.publish_map_tf(engine.map_t_odom, pose.timestamp)
 
             if frame_count % rgbd_every == 0:
                 with stats.stage("rgbd").time():
-                    for proc in processors:
+                    for idx, proc in enumerate(processors):
                         color = None
                         if proc.color_mode:
                             src = rig.get_source(proc.camera_name)
@@ -182,6 +192,8 @@ def run(
                             rgb_t.publish(frame)
                             depth_t.publish(frame)
                             rgbd_fps[proc.camera_name].tick()
+                            if ros_bridge is not None:
+                                ros_bridge.publish_rgbd(idx, frame.fetched())
                             if (
                                 mapper is not None
                                 and pose_hist
@@ -210,6 +222,8 @@ def run(
                 if mapper is not None and mapper.stats.integrated_frames:
                     pts, cols = mapper.surface_cloud(max_points=65536)
                     surface_topic.publish((pts, cols))
+                    if ros_bridge is not None:
+                        ros_bridge.publish_surface_cloud(pts, cols, sync.timestamp)
                     map_stat = (
                         f" | map: {mapper.stats.integrated_frames}f"
                         f" {len(pts)}pts r{mapper.stats.recenters}"
@@ -240,7 +254,11 @@ def run(
             if save_ply:
                 mesh.save_ply(save_ply)
                 print(f"Mesh PLY saved to {save_ply}", flush=True)
+            if ros_bridge is not None:
+                ros_bridge.publish_mesh_marker(mesh, time.time())
         engine.shutdown()
+        if ros_bridge is not None:
+            ros_bridge.shutdown()
     return 0
 
 
@@ -263,15 +281,17 @@ def main(argv=None) -> int:
         "--save-ply", default=None, metavar="PATH",
         help="On exit, export the Surface-Nets mesh as binary PLY",
     )
-    parser.add_argument("--ros", action="store_true", help="Publish to ROS 2 (not ported yet)")
+    parser.add_argument(
+        "--ros", action="store_true",
+        help="Publish odometry/TF + nvblox RGB-D topics to ROS 2 (requires rclpy)",
+    )
     parser.add_argument("--device", default=None, help="Compute device (default: the current CUDA device)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
     # Fail fast on operator mistakes before the engine comes up.
-    if args.ros:
-        logger.error("%s", rs.ROS_NOT_PORTED)
+    if rs.ros_missing(args.ros, logger):
         return 2
     cfg, rc = rs.load_run_config(args.config)
     if cfg is None:
@@ -290,6 +310,7 @@ def main(argv=None) -> int:
         cfg,
         max_frames=args.frames,
         rgbd_every=args.rgbd_every,
+        use_ros=args.ros,
         save_dense_map=args.save_dense_map,
         save_ply=args.save_ply,
         device=args.device,

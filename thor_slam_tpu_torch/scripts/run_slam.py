@@ -1,13 +1,14 @@
 """SLAM runner: config -> sources -> rig -> TorchSlamEngine -> pose stream.
 
 Port of the JAX package's ``scripts/run_slam.py``: loads the YAML config,
-builds the synthetic camera sources, and runs the tracking hot loop with
-the same status-line UX. The engine runs on the card unless ``--device``
-says otherwise (``--device cpu`` runs the plain PyTorch versions).
-
-Not ported yet (ROADMAP Queue 1 #16): hardware camera sources (a config
-that lists cameras without ``synthetic.enabled``) and ``--ros``; both
-report so and return 2, as the reference does without depthai or rclpy.
+builds camera sources (synthetic by default; Luxonis when depthai is
+installed and the config lists real IPs, with URDF rig extrinsics and the
+IMU's DRB->RDF convention composed into the rig frame), and runs the
+tracking hot loop with the same status-line UX. ``--ros`` publishes
+odometry, TF and the sparse clouds through ``RosBridge``. Without depthai
+or rclpy those two branches log why and return 2, as the reference's do.
+The engine runs on the card unless ``--device`` says otherwise
+(``--device cpu`` runs the plain PyTorch versions).
 
 Usage:
     python -m thor_slam_tpu_torch.scripts.run_slam --config config/slam_config.yaml --synthetic
@@ -25,13 +26,6 @@ import time
 logger = logging.getLogger("run_slam")
 
 _shutdown = False
-
-HARDWARE_NOT_PORTED = (
-    "hardware camera sources (luxonis.py, camera/utils.py) are not ported yet "
-    "(ROADMAP Queue 1 #16); run with --synthetic or synthetic.enabled"
-)
-ROS_NOT_PORTED = "--ros: the ROS 2 adapters (slam/adapters/) are not ported yet (ROADMAP Queue 1 #16)"
-
 
 def _handle_signal(signum, frame):
     global _shutdown
@@ -65,6 +59,82 @@ def build_synthetic_sources(cfg):
     return sources, rig_ext
 
 
+def build_hardware_sources(cfg):
+    """Luxonis OAK sources from the config's camera list (requires depthai)."""
+    from thor_slam_tpu_torch import geometry
+    from thor_slam_tpu_torch.camera.sources.luxonis import (
+        LuxonisCameraConfig,
+        LuxonisCameraSource,
+        LuxonisRGBDCameraConfig,
+    )
+    from thor_slam_tpu_torch.camera.types import Extrinsics, IMUExtrinsics, IPv4
+    from thor_slam_tpu_torch.camera.utils import load_rig_extrinsics_from_urdf
+
+    rgbd_ips = set(cfg.rgbd_camera_ips())
+    sources = []
+    for i, cam in enumerate(cfg.cameras):
+        # RGB-D cameras get the CAM_A color leg at its own (sensor, output)
+        # resolutions, independent of the SLAM stream.
+        rgbd = None
+        if cam.ip in rgbd_ips and cam.stereo:
+            rgbd = LuxonisRGBDCameraConfig(
+                rgb_sensor_resolution=cam.rgb_sensor_resolution,
+                rgb_output_resolution=cam.rgb_output_resolution,
+            )
+        lux_cfg = LuxonisCameraConfig(
+            ip=IPv4(cam.ip),
+            fps=cfg.fps,
+            stereo=cam.stereo,
+            sensor_type=cam.sensor_type,
+            resolution=cam.resolution,
+            output_resolution=cam.output_resolution,
+            queue_size=cfg.queue_size,
+            read_imu=(i == 0),  # IMU from the first camera
+            imu_report_rate=cfg.imu_report_rate,
+            rgbd=rgbd,
+        )
+        sources.append(LuxonisCameraSource(lux_cfg))
+
+    rig_ext = {}
+    imu_ext = None
+    if cfg.urdf_path:
+        camera_map = {c.ip: f"link_Camera_{i + 1}" for i, c in enumerate(cfg.cameras)}
+        rig_ext = load_rig_extrinsics_from_urdf(cfg.urdf_path, camera_map)
+
+    # IMU extrinsics: sensor frame is DRB on OAK-D Pro -> convert to RDF and
+    # compose into the rig frame.
+    imu_src = sources[0]
+    sensor_ext = imu_src.get_sensor_extrinsics()
+    if sensor_ext is not None:
+        imu_rdf = geometry.DRB_TO_RDF_MATRIX @ sensor_ext.to_4x4_matrix()
+        base = rig_ext.get(cfg.cameras[0].ip)
+        world_imu = (base.to_4x4_matrix() @ imu_rdf) if base else imu_rdf
+        imu_ext = IMUExtrinsics(
+            source_name=cfg.cameras[0].ip, extrinsics=Extrinsics.from_4x4_matrix(world_imu)
+        )
+    return sources, rig_ext, imu_ext
+
+
+def build_sources(cfg):
+    """(sources, rig extrinsics, IMU extrinsics) of the config: the synthetic
+    rig (no IMU extrinsics) or the hardware cameras. Raises ImportError
+    without depthai."""
+    if cfg.synthetic.enabled or not cfg.cameras:
+        return (*build_synthetic_sources(cfg), None)
+    return build_hardware_sources(cfg)
+
+
+def ros_missing(use_ros: bool, log: logging.Logger = logger) -> bool:
+    """Whether ``--ros`` was asked for without rclpy (logged on ``log``)."""
+    if not use_ros:
+        return False
+    from thor_slam_tpu_torch.slam.adapters import ros_bridge
+
+    if not ros_bridge.HAVE_ROS:
+        log.error("--ros requested but rclpy is not installed")
+    return not ros_bridge.HAVE_ROS
+
+
 def build_engine(cfg, device=None):
     """``TorchSlamEngine`` from the config's ``backend`` section, with exactly
     the arguments the reference's runners give their engine (which leaves
@@ -88,13 +158,14 @@ def build_engine(cfg, device=None):
     )
 
 
-def build_rig(cfg, sources, rig_ext):
+def build_rig(cfg, sources, rig_ext, imu_ext=None):
     from thor_slam_tpu_torch.camera.rig import CameraRig
 
     return CameraRig(
         sources,
         queue_size=cfg.rig_queue_size,
         rig_extrinsics=rig_ext,
+        imu_extrinsics=imu_ext,
         imu_source=sources[0].name if sources[0].has_sensor_data else None,
         watchdog_timeout_s=cfg.watchdog_timeout_s,
     )
@@ -127,19 +198,24 @@ def run(
     from thor_slam_tpu_torch.slam.interface import SlamConfig
     from thor_slam_tpu_torch.utils.profiling import PipelineStats
 
-    if use_ros:
-        logger.error("%s", ROS_NOT_PORTED)
+    try:
+        sources, rig_ext, imu_ext = build_sources(cfg)
+    except ImportError as e:  # depthai absent: say so, don't traceback
+        logger.error("%s", e)
         return 2
-    if not (cfg.synthetic.enabled or not cfg.cameras):
-        logger.error("%s", HARDWARE_NOT_PORTED)
-        return 2
-    sources, rig_ext = build_synthetic_sources(cfg)
 
     bus = MessageBus()
     pose_topic = bus.topic("/slam/pose", queue_size=30)
     stats = PipelineStats()
+    ros_bridge = None
+    if use_ros:
+        if ros_missing(use_ros):
+            return 2
+        from thor_slam_tpu_torch.slam.adapters.ros_bridge import RosBridge
+
+        ros_bridge = RosBridge()
     engine = build_engine(cfg, device)
-    rig = build_rig(cfg, sources, rig_ext)
+    rig = build_rig(cfg, sources, rig_ext, imu_ext)
 
     frame_count = 0
     try:
@@ -163,6 +239,9 @@ def run(
             stats.num_inliers = engine.last_diagnostics.get("num_inliers", 0)
             if pose is not None:
                 pose_topic.publish(pose)
+                if ros_bridge is not None:
+                    ros_bridge.publish_pose(pose)
+                    ros_bridge.publish_map_tf(engine.map_t_odom, pose.timestamp)
 
             if cfg.display:
                 _display_frames(sync)
@@ -171,6 +250,15 @@ def run(
             if now - last_status >= 2.0:  # the reference's cadence
                 print(stats.status_line(frame_count), flush=True)
                 last_status = now
+                if ros_bridge is not None and pose is not None:
+                    # The landmark / observation clouds at status cadence:
+                    # the map changes at keyframe rate.
+                    ros_bridge.publish_observations(
+                        engine.get_map().to_point_cloud(), pose.timestamp
+                    )
+                    ros_bridge.publish_landmarks(
+                        engine.get_landmark_cloud(), pose.timestamp
+                    )
     finally:
         rig.stop()
         final = engine.flush()  # finalize the in-flight pipelined tick
@@ -186,6 +274,8 @@ def run(
             flush=True,
         )
         engine.shutdown()
+        if ros_bridge is not None:
+            ros_bridge.shutdown()
     return 0
 
 
@@ -206,15 +296,18 @@ def main(argv=None) -> int:
     parser.add_argument("--synthetic", action="store_true", help="Force the synthetic rig")
     parser.add_argument("--frames", type=int, default=None, help="Stop after N frames")
     parser.add_argument("--save-map", default=None, help="Save the map on exit (npz)")
-    parser.add_argument("--ros", action="store_true", help="Publish to ROS 2 (not ported yet)")
+    parser.add_argument(
+        "--ros", action="store_true",
+        help="Publish odometry/TF to ROS 2 (requires rclpy; reference topics)",
+    )
     parser.add_argument("--device", default=None, help="Compute device (default: the current CUDA device)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
-    # Fail fast on operator mistakes before the engine comes up.
-    if args.ros:
-        logger.error("%s", ROS_NOT_PORTED)
+    # Fail fast on operator mistakes before the config is read and the
+    # engine comes up.
+    if ros_missing(args.ros):
         return 2
     cfg, rc = load_run_config(args.config)
     if cfg is None:
@@ -224,7 +317,7 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, _handle_signal)
     signal.signal(signal.SIGTERM, _handle_signal)
-    return run(cfg, max_frames=args.frames, save_map_path=args.save_map, device=args.device)
+    return run(cfg, max_frames=args.frames, save_map_path=args.save_map, use_ros=args.ros, device=args.device)
 
 
 if __name__ == "__main__":
