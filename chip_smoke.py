@@ -130,6 +130,26 @@ tree it shows which gate an outcome of that phase turned on. It
    the second frame on, the gather and FAST identities of its ticks, and
    an odometry ATE within EUROC_MAX_ATE_FACTOR of the JAX runner's on the
    identical sequence (EUROC_REF_ATE_CM, measured on the CPU).
+11. tracking over a mesh of shards (``spmd:`` lines). The card's machine
+   has one GPU, so first ``TorchSlamEngine(devices=2)`` must raise the
+   reference's ``RuntimeError``; then every mesh repeats the card
+   (``devices=[cuda:0] * n``), which runs each kernel at its sharded
+   shapes: (a) the slice's 40 ticks (reused) over 2 camera shards (2
+   cameras each) and over 4 (1 each), the slice's engine arguments; (b)
+   phase 10's sequence, its first 80 frames, through ``run_euroc.main`` at
+   its defaults on the single device and over 2 slot shards (2 x 256
+   slots, the IMU's prediction feeding the sharded step). Before each run
+   both kernels are held to their plain versions at each shard's shapes
+   (the gather pair at M = 2 x 1024, 2 x 512 and 2 x 256 on the
+   replicated (1, 480, 752) stack; FAST on (4, 400, 640), (2, 400, 640)
+   and (2, 480, 752) once per shard). Each run prints ms per tick (median,
+   keyframe), the gather and FAST launches (the identities times the shard
+   count), ATE, the TRACKING share, whether the ids a keyframe minted are
+   unique across shards at every keyframe, and the largest pose
+   difference against the single device on the same frames; (a) holds
+   ATE < 5 cm, TRACKING by tick 3 and on >= 90 % after, within 0.02 m of
+   the slice's poses; (b) TRACKING on >= 90 % after the first keyframe and
+   an ATE within 2x the single device's.
 
 Every phase's frames are rendered ahead by a pool of worker processes (a
 frame is a deterministic function of its index), which are idle while ticks
@@ -305,6 +325,16 @@ EUROC_ARGS = ("--width", "752", "--height", "480", "--fps", "20", "--frames", "2
 # scripts.run_euroc --cpu, on the CPU: odometry ATE, closures, map ATE).
 EUROC_REF_ATE_CM, EUROC_REF_LOOPS, EUROC_REF_MAP_ATE_CM = 3.50, 0, 3.35
 EUROC_MAX_ATE_FACTOR = 2.0  # the port's odometry ATE on the card against the reference's
+# Phase 11: tracking over a mesh of shards on the one card (the mesh repeats
+# cuda:0, so every kernel runs at its sharded shapes; no run here has a
+# second GPU). The slice's 4 cameras over 2 shards (2 cameras each) and over
+# 4 (1 each); phase 10's sequence (1 camera, 512 slots) over 2 slot shards
+# of 256, its first SPMD_EUROC_FRAMES frames, with and without the mesh.
+SPMD_CAM_SHARDS = (2, 4)
+SPMD_SLOT_SHARDS = 2
+SPMD_EUROC_FRAMES = 80
+SPMD_MAX_POSE_DIFF_M = 0.02  # the reference's bar (tests/test_parallel.py)
+SPMD_MAX_ATE_FACTOR = 2.0  # slot-sharded ATE against the single device's (tests/test_engine_spmd.py)
 # --tick-launches: ticks under the profiler, then unprofiled ticks.
 PROFILE_TICKS = 28  # the slice refreshes about every 13th tick: two keyframes
 TIMED_TICKS = 30
@@ -806,7 +836,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     patches_cuda.reset_counts()
     fast_cuda.reset_counts()
     sgm_cuda.reset_counts()
-    tick_ms, refreshed, states, est, gt = [], [], [], [], []
+    tick_ms, refreshed, states, est, gt, positions = [], [], [], [], [], []
     rgbd_ms, rgbd_acc, rgbd_items = [], [], []
     gt0 = traj.pose(frames[0].timestamp)
     for i, fs in enumerate(frames):
@@ -816,6 +846,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
         tick_ms.append(1e3 * (time.perf_counter() - t))
         refreshed.append(engine.last_diagnostics["refreshed"])
         states.append(engine.get_tracking_state())
+        positions.append(None if pose is None else pose.position.copy())
         if pose is not None:
             est.append(pose.position.copy())
             gt.append((np.linalg.inv(gt0) @ traj.pose(fs.timestamp))[:3, 3])
@@ -901,6 +932,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
         raise AssertionError(f"RGB-D depth off the bar: valid shares {shares}, median rel errors {rels}")
     reuse = dict(calibration=calibration, traj=traj, frames=frames[:SWITCH_TICKS], tick_ms=tick_ms[:SWITCH_TICKS],
                  max_keypoints=params.max_keypoints, klt_levels=params.klt_levels, all_frames=frames, ate=ate,
+                 positions=positions,
                  processor=processor, rgbd_items=rgbd_items,
                  body_t_left=calibration.get_world_extrinsics(src.name)[0].to_4x4_matrix())
     return {name: c["kernel"] for name, c in counts.items()}, len(rgbd_ms), reuse
@@ -1378,31 +1410,36 @@ def _drive(engine, frames, traj, dev, on_tick=None) -> dict:
     )
 
 
-def _check_counts(name: str, r: dict, klt_levels: int, failures: list, kernels: bool = True) -> dict:
+def _check_counts(name: str, r: dict, klt_levels: int, failures: list, kernels: bool = True, shards: int = 1) -> dict:
     """One gather launch per KLT level and tick plus one per keyframe, one
     FAST launch per keyframe (both eyes of every camera, a mono camera's
-    zero-filled right image included), no plain call. (``kernels=False``,
+    zero-filled right image included), no plain call; each ``shards``
+    times on a mesh (every shard makes its own launches). (``kernels=False``,
     a rehearsal on the CPU: the same counts of the plain versions.)"""
     ticks, keyframes, counts = len(r["tick_ms"]), r["keyframes"], r["counts"]
     ran, other = ("kernel", "plain") if kernels else ("plain", "kernel")
-    want = klt_levels * ticks + keyframes
+    want = shards * (klt_levels * ticks + keyframes)
     if counts["patch_gather"][ran] != want:
-        failures.append(f"{name}: patch gather launched {counts['patch_gather'][ran]}, not {klt_levels} x {ticks} + {keyframes}")
-    if counts["fast9_nms"][ran] != keyframes or keyframes == 0:
-        failures.append(f"{name}: FAST launched {counts['fast9_nms'][ran]} for {keyframes} keyframes")
+        failures.append(f"{name}: patch gather launched {counts['patch_gather'][ran]}, not {shards} x "
+                        f"({klt_levels} x {ticks} + {keyframes})")
+    if counts["fast9_nms"][ran] != shards * keyframes or keyframes == 0:
+        failures.append(f"{name}: FAST launched {counts['fast9_nms'][ran]} for {keyframes} keyframes on {shards} shard(s)")
     if any(c[other] for c in counts.values()):
         failures.append(f"{name}: {other} versions ran: {counts}")
     return {k: c[ran] for k, c in counts.items()}
 
 
-def check_on_rig_frames(dev, label: str, frames, calibration, max_keypoints: int, kernels: bool = True) -> None:
+def check_on_rig_frames(
+    dev, label: str, frames, calibration, max_keypoints: int, kernels: bool = True, cams: slice = slice(None)
+) -> None:
     """Both kernels against their plain versions on a rig's own frames, at
     the shapes the rig's ticks give them: FAST on the (2C, H, W) view of one
     frame set (a mono camera's right image zero), the pair gather on the
     left images of two consecutive frame sets (a KLT level, S = 19) and on
     the two eyes of one (BRIEF, S = 37, strided), with ``max_keypoints``
     centres a camera around the strongest corners and past the borders.
-    Runs before the phase's counts are set to 0."""
+    ``cams`` takes a camera shard's part of the frame sets. Runs before the
+    phase's counts are set to 0."""
     from thor_slam_tpu_torch.engine import staging
     from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
 
@@ -1410,7 +1447,8 @@ def check_on_rig_frames(dev, label: str, frames, calibration, max_keypoints: int
         return
     order = sorted(calibration.source_names)
     zero = np.zeros_like(frames[0].frame_sets[order[0]].frames[0].image)
-    a, b = (torch.from_numpy(staging.stage_images(fs, order, zero)).to(dev).float() * (1.0 / 255.0) for fs in frames[:2])
+    a, b = (torch.from_numpy(staging.stage_images(fs, order, zero)[cams]).to(dev).float() * (1.0 / 255.0)
+            for fs in frames[:2])
     c, _, h, w = a.shape
     raw_k, nms_k = fast_cuda.fast_scores_cuda(a.reshape(2 * c, h, w), 0.05)
     raw_p, nms_p = fast_cuda.fast_scores_plain(a.reshape(2 * c, h, w), 0.05)
@@ -2166,37 +2204,25 @@ def start_euroc_inputs(pool, out_dir, seq_args=EUROC_ARGS):
     return finish
 
 
-def run_euroc_phase(dev, seq_args, kernels: bool = True) -> dict:
-    """Phase 10: the port's ``run_euroc.main`` in this process, on ``dev`` at
-    its defaults (IMU with the accelerometer, BA, loop closure, light ticks),
-    over the sequence of ``seq_args``. First both kernels against their
-    plain versions on the sequence's own frames; then the run, each
-    ``process_frames`` timed (the engine is synchronous: the device is
-    synchronized after each), the counts set to 0 after ``initialize``.
-    Holds rc 0, every frame tracked from the second on, the launch
-    identities and the odometry ATE against the JAX runner's on the same
-    sequence. Returns the launches."""
+def _run_euroc_main(dev, seq_dir, argv=(), devices=None, on_call=None) -> dict:
+    """The port's ``run_euroc.main`` in this process on ``dev`` over the
+    sequence in ``seq_dir`` with the extra ``argv``; ``devices`` replaces
+    the engine's ``devices`` (a mesh on one card, which ``--devices`` cannot
+    ask for). Each ``process_frames`` is timed with the device synchronized
+    after it, ``on_call(engine)`` runs after each (untimed), the counts are
+    set to 0 after ``initialize``. Returns rc, the output's text, the
+    engine, its finalized ticks, the ms per call and the counts."""
     import contextlib
     import io
-    import re
 
-    from thor_slam_tpu_torch.camera.rig import CameraRig
-    from thor_slam_tpu_torch.camera.sources.dataset import EurocCameraSource
     from thor_slam_tpu_torch.scripts import run_euroc
-    from thor_slam_tpu_torch.slam.interface import TrackingState
-    from thor_slam_tpu_torch.engine.tracker import TrackerParams
-
-    src = EurocCameraSource(seq_args.out, max_frames=2)
-    with CameraRig([src]) as rig:
-        frames = [rig.get_synchronized_frames() for _ in range(2)]
-        calibration = rig.calibration
-    max_keypoints = TrackerParams.__dataclass_fields__["max_keypoints"].default  # run_euroc's engine's
-    check_on_rig_frames(dev, "euroc", frames, calibration, max_keypoints, kernels)
 
     engines, logs, tick_ms = [], [], []
     build_engine = run_euroc.build_engine
 
     def timed_engine(args, device):
+        if devices is not None:
+            args.devices = devices
         engine = build_engine(args, device)
         engines.append(engine)
         logs.append(log_finalized(engine))
@@ -2213,6 +2239,8 @@ def run_euroc_phase(dev, seq_args, kernels: bool = True) -> dict:
             pose = process(fs)
             _sync(dev)
             tick_ms.append(1e3 * (time.perf_counter() - t))
+            if on_call is not None:
+                on_call(engine)
             return pose
 
         engine.initialize, engine.process_frames = counted_initialize, timed_process
@@ -2222,15 +2250,42 @@ def run_euroc_phase(dev, seq_args, kernels: bool = True) -> dict:
     run_euroc.build_engine = timed_engine
     try:
         with contextlib.redirect_stdout(out):
-            rc = run_euroc.main(["--sequence", str(seq_args.out), *(["--cpu"] if dev.type == "cpu" else [])])
+            rc = run_euroc.main(["--sequence", str(seq_dir), *argv, *(["--cpu"] if dev.type == "cpu" else [])])
         _sync(dev)
     finally:
         run_euroc.build_engine = build_engine
-    counts = _counts()
-    text = out.getvalue()
+    (engine,), (log,) = engines, logs
+    return dict(rc=rc, text=out.getvalue(), engine=engine, log=log, tick_ms=tick_ms, counts=_counts())
+
+
+def run_euroc_phase(dev, seq_args, kernels: bool = True) -> dict:
+    """Phase 10: the port's ``run_euroc.main`` in this process, on ``dev`` at
+    its defaults (IMU with the accelerometer, BA, loop closure, light ticks),
+    over the sequence of ``seq_args``. First both kernels against their
+    plain versions on the sequence's own frames; then the run, each
+    ``process_frames`` timed (the engine is synchronous: the device is
+    synchronized after each), the counts set to 0 after ``initialize``.
+    Holds rc 0, every frame tracked from the second on, the launch
+    identities and the odometry ATE against the JAX runner's on the same
+    sequence. Returns the launches."""
+    import re
+
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.sources.dataset import EurocCameraSource
+    from thor_slam_tpu_torch.slam.interface import TrackingState
+    from thor_slam_tpu_torch.engine.tracker import TrackerParams
+
+    src = EurocCameraSource(seq_args.out, max_frames=2)
+    with CameraRig([src]) as rig:
+        frames = [rig.get_synchronized_frames() for _ in range(2)]
+        calibration = rig.calibration
+    max_keypoints = TrackerParams.__dataclass_fields__["max_keypoints"].default  # run_euroc's engine's
+    check_on_rig_frames(dev, "euroc", frames, calibration, max_keypoints, kernels)
+
+    r = _run_euroc_main(dev, seq_args.out)
+    rc, text, engine, log, tick_ms, counts = (r[k] for k in ("rc", "text", "engine", "log", "tick_ms", "counts"))
     for line in text.splitlines():
         print(f"euroc: {line}")
-    (engine,), (log,) = engines, logs
     params = engine._params
     states = [e["state"] for e in log]
     r = dict(tick_ms=tick_ms, keyframes=int(sum(bool(e["diag"]["refreshed"]) for e in log)), counts=counts)
@@ -2266,6 +2321,157 @@ def run_euroc_phase(dev, seq_args, kernels: bool = True) -> dict:
     print("euroc: " + json.dumps(result))
     if failures:
         raise AssertionError("euroc phase: " + "; ".join(failures))
+    return launches
+
+
+class _IdWatch:
+    """Called after each synchronous tick: at a keyframe, the ids it minted
+    (those at or above the counter before it) must appear once across all
+    shards and, in cam mode, no id may sit on two shards (a camera inherits
+    only its own landmarks; in slot mode a slot may inherit another
+    shard's, as the reference allows)."""
+
+    def __init__(self) -> None:
+        self.counter = 0
+        self.checks: list[bool] = []
+
+    def __call__(self, engine) -> None:
+        st = engine._tracker_state
+        if engine.last_diagnostics.get("refreshed"):
+            per_shard = [sh.lm_id[sh.lm_valid].cpu().numpy() for sh in st.shards]
+            ids = np.concatenate(per_shard)
+            fresh = ids[ids >= self.counter]
+            ok = len(np.unique(fresh)) == len(fresh)
+            if st.axis_mode == "cam":
+                sets = [set(x.tolist()) for x in per_shard]
+                ok = ok and sum(len(x) for x in sets) == len(set().union(*sets))
+            self.checks.append(bool(ok))
+        self.counter = int(st.lm_id_counter)
+
+    @property
+    def unique(self) -> bool:
+        return bool(self.checks) and all(self.checks)
+
+
+def run_spmd(dev, reuse: dict, seq_args, kernels: bool = True) -> dict:
+    """Phase 11: ``TorchSlamEngine`` over a mesh of shards on ``dev``.
+
+    First, on a machine with one card, ``TorchSlamEngine(devices=2)`` must
+    raise the reference's ``RuntimeError``. (a) The slice's 40 ticks
+    (reused) over SPMD_CAM_SHARDS camera shards, the slice's engine
+    arguments; (b) phase 10's sequence, its first SPMD_EUROC_FRAMES frames,
+    through ``run_euroc.main`` at its defaults (the IMU's prediction feeds
+    the sharded step), on the single device and over SPMD_SLOT_SHARDS slot
+    shards. Before each, both kernels against their plain versions at each
+    shard's shapes. Each run prints one ``spmd:`` line and is held to: ATE,
+    TRACKING, ids unique at every keyframe, the launch identities times the
+    shard count; (a) within SPMD_MAX_POSE_DIFF_M of the slice's poses, (b)
+    an ATE within SPMD_MAX_ATE_FACTOR of the single device's. Returns the
+    launches."""
+    import re
+
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.sources.dataset import EurocCameraSource
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+    from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    failures: list[str] = []
+    launches: dict[str, int] = {}
+
+    def add(counts: dict) -> None:
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    calibration, traj, frames = reuse["calibration"], reuse["traj"], reuse["all_frames"]
+    num_cams, n_kp, levels = len(calibration.source_names), reuse["max_keypoints"], reuse["klt_levels"]
+    if dev.type == "cuda" and torch.cuda.device_count() == 1:
+        try:
+            TorchSlamEngine(devices=2).initialize(calibration, SlamConfig(num_cameras=2 * num_cams))
+        except RuntimeError as e:
+            if "devices" not in str(e):
+                raise
+            print(f"spmd: TorchSlamEngine(devices=2) on one card raises RuntimeError: {e}")
+        else:
+            raise AssertionError("TorchSlamEngine(devices=2) initialized on a machine with one card")
+
+    def ms(tick_ms, log, keyframe):
+        sel = [t for t, e in zip(tick_ms, log) if bool(e["diag"]["refreshed"]) == keyframe]
+        return statistics.median(sel) if sel else None
+
+    for n in SPMD_CAM_SHARDS:
+        label, per = f"spmd cam x{n}", num_cams // n
+        for k in range(n):
+            check_on_rig_frames(dev, f"{label} shard {k}", frames[:2], calibration, n_kp, kernels,
+                                cams=slice(k * per, (k + 1) * per))
+        engine = TorchSlamEngine(params=dict(max_keypoints=n_kp), device=dev, devices=[dev] * n, seed=SEED,
+                                 **PR6_MODES)
+        engine.initialize(calibration, SlamConfig(num_cameras=2 * num_cams, enable_loop_closure=False))
+        watch = _IdWatch()
+        r = _drive(engine, frames, traj, dev, on_tick=lambda i: watch(engine))
+        ate = ate_rmse(r["est"], r["gt"])
+        diff = max(float(np.linalg.norm(p.position - q)) for p, q in zip(r["poses"], reuse["positions"])
+                   if p is not None and q is not None)
+        counts = _check_counts(label, r, levels, failures, kernels, shards=n)
+        add(counts)
+        result = dict(
+            run=label, axis=engine._step.axis_mode, shards=n, ticks=len(frames), ms_median=statistics.median(r["tick_ms"]),
+            ms_keyframe_median=ms(r["tick_ms"], r["log"], True), ms_other_median=ms(r["tick_ms"], r["log"], False),
+            keyframes=r["keyframes"], launches=counts, ate_cm=100 * ate, single_device_ate_cm=100 * reuse["ate"],
+            first_tracking=r["first_tracking"], tracking_share=r["held"], ids_unique_every_keyframe=watch.unique,
+            max_pose_diff_vs_single_m=diff,
+        )
+        print("spmd: " + json.dumps(result))
+        if not ate < 0.05 or r["first_tracking"] is None or r["first_tracking"] > 3 or r["held"] < 0.9:
+            failures.append(f"{label}: ATE {ate:.4f} m, TRACKING from {r['first_tracking']} on {r['held']:.0%}")
+        if not diff < SPMD_MAX_POSE_DIFF_M or not watch.unique:
+            failures.append(f"{label}: {diff:.4f} m from the single device, ids unique at keyframes {watch.checks}")
+        engine.shutdown()
+
+    n = SPMD_SLOT_SHARDS
+    label = f"spmd slot x{n}"
+    src = EurocCameraSource(seq_args.out, max_frames=2)
+    with CameraRig([src]) as rig:
+        euroc_frames = [rig.get_synchronized_frames() for _ in range(2)]
+        euroc_cal = rig.calibration
+    full_kp = 512  # run_euroc's engine's max_keypoints (the tracker's default)
+    for k in range(n):  # each shard detects on the full images and gathers its slots
+        check_on_rig_frames(dev, f"{label} shard {k}", euroc_frames, euroc_cal, full_kp // n, kernels)
+    argv = ("--frames", str(SPMD_EUROC_FRAMES))
+    runs = {}
+    for name, devices, watch in (("single", None, None), (label, [dev] * n, _IdWatch())):
+        r = _run_euroc_main(dev, seq_args.out, argv, devices=devices, on_call=watch)
+        ate = re.search(r"^ATE-RMSE: ([\d.]+) cm", r["text"], re.M)
+        if r["rc"] != 0 or not ate:
+            raise AssertionError(f"{label} ({name}): rc {r['rc']}, output {r['text']!r}")
+        r.update(ate_cm=float(ate.group(1)), keyframes=int(sum(bool(e["diag"]["refreshed"]) for e in r["log"])),
+                 watch=watch)
+        runs[name] = r
+    one, sh = runs["single"], runs[label]
+    states = [e["state"] for e in sh["log"]]
+    held = float(np.mean([s == TrackingState.TRACKING for s in states[1:]]))  # the first keyframe is tick 0
+    diff = max(float(np.linalg.norm(a["pose"].position - b["pose"].position)) for a, b in zip(sh["log"], one["log"])
+               if a["pose"] is not None and b["pose"] is not None)
+    imu = sum("imu_pred_err_m" in e["diag"] for e in sh["log"])
+    add(_check_counts(f"{label} (single device)", one, sh["engine"]._params.klt_levels, failures, kernels))
+    counts = _check_counts(label, sh, sh["engine"]._params.klt_levels, failures, kernels, shards=n)
+    add(counts)
+    result = dict(
+        run=label, axis=sh["engine"]._step.axis_mode, shards=n, ticks=len(sh["tick_ms"]),
+        ms_median=statistics.median(sh["tick_ms"]), ms_keyframe_median=ms(sh["tick_ms"], sh["log"], True),
+        ms_other_median=ms(sh["tick_ms"], sh["log"], False), keyframes=sh["keyframes"], launches=counts,
+        ate_cm=sh["ate_cm"], single_device_ate_cm=one["ate_cm"], single_device_ms_median=statistics.median(one["tick_ms"]),
+        tracking_share_after_first_keyframe=held, ids_unique_every_keyframe=sh["watch"].unique,
+        ticks_with_imu_prediction=imu, max_pose_diff_vs_single_m=diff,
+    )
+    print("spmd: " + json.dumps(result))
+    if held < 0.9 or not sh["ate_cm"] <= SPMD_MAX_ATE_FACTOR * one["ate_cm"] or not sh["watch"].unique or imu == 0:
+        failures.append(f"{label}: TRACKING {held:.0%}, ATE {sh['ate_cm']} cm against {one['ate_cm']} cm, "
+                        f"ids unique at keyframes {sh['watch'].checks}, {imu} ticks with the IMU's prediction")
+    for r in runs.values():
+        r["engine"].shutdown()
+    if failures:
+        raise AssertionError("spmd phase: " + "; ".join(failures))
     return launches
 
 
@@ -2515,9 +2721,13 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         phases["euroc"] = run_euroc_phase(dev, euroc_args)
+        print(f"euroc: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['euroc'])}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phases["spmd"] = run_spmd(dev, reuse, euroc_args)
+        print(f"spmd: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['spmd'])}")
     finally:
         shutil.rmtree(euroc_dir, ignore_errors=True)
-    print(f"euroc: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['euroc'])}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phases["defer_sync"] = run_defer_sync(dev, reuse)

@@ -446,6 +446,65 @@ def test_rgbd_product_on_the_card_through_the_kernels(cuda_device):
     assert (on_card.depth_mm > 0).mean() > 0.2
 
 
+@pytest.mark.cuda
+def test_every_launch_sets_the_tensors_device(cuda_device, monkeypatch):
+    """Each wrapper launches under ``torch.cuda.device(tensor.device)``,
+    also from a thread whose current device was set to another card (the
+    last one visible; on a one-card machine the same card, so the recorded
+    guard is what shows the repair there). Results exact against the plain
+    versions (FAST within 1e-6, as its own test)."""
+    import threading
+
+    entered = []
+
+    class Recording(torch.cuda.device):  # a class still: torch checks isinstance against it
+        def __init__(self, device):
+            entered.append(torch.device(device))
+            super().__init__(device)
+
+    monkeypatch.setattr(torch.cuda, "device", Recording)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(2)
+    stacks, cam, centers = _patch_inputs((2, 64, 80), 64, dev)
+    images = torch.rand((2, 64, 80), generator=gen).to(dev)
+    cost = _sgm_volume((16, 24, 40), 3, True)
+    calls = {
+        "patches": lambda: patches_cuda.extract_patches_flat_cuda(stacks[0], cam, centers[0].contiguous(), 9),
+        "fast": lambda: fast_cuda.fast_scores_cuda(images, 0.05),
+        "sgm_4dir": lambda: sgm_cuda.sgm_aggregate_4dir_cuda(cost, 6.0, 96.0),
+        "sgm_winner_lr": lambda: sgm_cuda.winner_lr_cuda(cost, 16),
+    }
+    plains = {
+        "patches": lambda: patches_cuda.extract_patches_flat_plain(stacks[0], cam, centers[0].contiguous(), 9),
+        "fast": lambda: fast_cuda.fast_scores_plain(images, 0.05),
+        "sgm_4dir": lambda: sgm_cuda.sgm_aggregate_4dir_plain(cost, 6.0, 96.0),
+        "sgm_winner_lr": lambda: sgm_cuda.winner_lr_plain(cost, 16),
+    }
+    got, errors = {}, []
+
+    def launch_all():
+        try:
+            torch.cuda.set_device(torch.cuda.device_count() - 1)
+            for name, fn in calls.items():
+                before = len(entered)
+                got[name] = fn()
+                torch.cuda.synchronize(dev)
+                assert entered[before:] and all(d == dev for d in entered[before:]), (name, entered[before:])
+        except BaseException as e:  # re-raised in the test's thread
+            errors.append(e)
+
+    thread = threading.Thread(target=launch_all)
+    thread.start()
+    thread.join()
+    if errors:
+        raise errors[0]
+    for name, fn in plains.items():
+        want = fn()
+        for g, w in zip(got[name] if isinstance(got[name], tuple) else (got[name],),
+                        want if isinstance(want, tuple) else (want,)):
+            assert float((g.float() - w.float()).abs().max()) <= (1e-6 if name == "fast" else 0.0), name
+
+
 # ------------------------------------------------ pipelined ticks on the card
 
 

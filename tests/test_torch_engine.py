@@ -134,12 +134,9 @@ def test_reset_and_shutdown(runs):
 
 @pytest.mark.parametrize("kwargs", [dict(pipelined=True), dict(light_ticks=True), dict(devices=2)])
 def test_unported_options_raise(runs, kwargs):
-    """Pipelined mode and light ticks are ported: the engine constructs and
-    tracks 3 ticks. More than one device still raises."""
-    if "devices" in kwargs:
-        with pytest.raises(NotImplementedError):
-            TorchSlamEngine(device="cpu", **kwargs)
-        return
+    """Pipelined mode, light ticks and tracking over two devices (two
+    virtual CPU shards, a camera each) are ported: the engine constructs
+    and tracks 3 ticks."""
     engine = TorchSlamEngine(params=PARAMS, device="cpu", adaptive_half_res=False, **kwargs)
     engine.initialize(runs["calibration"], SlamConfig(num_cameras=4, enable_loop_closure=False))
     returned = [engine.process_frames(fs) for fs in runs["frames"][:3]]
@@ -177,13 +174,13 @@ def test_imu_noise_keys_checked():
 
 def test_mono_source_raises():
     """A mono source used to raise at ``initialize``; it is accepted now
-    (tests/test_torch_mono.py drives such rigs). What still raises is the
-    reference's other refusal, a mono source on more than one device,
-    through the constructor's refusal of ``devices`` > 1."""
+    (tests/test_torch_mono.py drives such rigs). What still raises, at
+    ``initialize``, is the reference's other refusal: a mono source on more
+    than one device."""
     spec = SyntheticRigSpec(num_sources=1, stereo=False, width=64, height=48)
     sources, rig_ext, _, _ = make_synthetic_rig(spec, render=False)
     calibration = CameraRig(sources, rig_extrinsics=rig_ext).calibration
-    with pytest.raises(NotImplementedError, match="devices"):
+    with pytest.raises(RuntimeError, match="mono sources are not supported under SPMD"):
         TorchSlamEngine(device="cpu", devices=2).initialize(calibration)
     engine = TorchSlamEngine(device="cpu")
     engine.initialize(calibration)

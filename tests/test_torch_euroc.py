@@ -20,7 +20,6 @@ from __future__ import annotations
 import contextlib
 import functools
 import io
-import logging
 import os
 import re
 import subprocess
@@ -114,11 +113,13 @@ def test_run_euroc_matches_reference_at_euroc_width(tmp_path):
     _compare(tmp_path, _reference(tmp_path, seq), _port(tmp_path, seq), frames=60, max_ate_cm=5.0)
 
 
-def test_run_euroc_refusals(tmp_path, caplog):
+def test_run_euroc_refusals(tmp_path):
     seq = _sequence(tmp_path / "seq", "--frames", "2", "--width", "64", "--height", "48")
-    with caplog.at_level(logging.ERROR):
-        assert run_euroc.main(["--sequence", str(seq), "--cpu", "--devices", "2"]) == 2
-    assert "multi-GPU tracking is not ported yet (ROADMAP Queue 1 #15)" in caplog.text
+    # Two devices are no refusal now: two virtual CPU shards of the slots.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert run_euroc.main(["--sequence", str(seq), "--cpu", "--devices", "2"]) == 0
+    assert re.search(r"^Tracked 2 frames", out.getvalue(), re.M)
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         assert run_euroc.main(["--sequence", str(tmp_path / "nothing"), "--cpu"]) == 2

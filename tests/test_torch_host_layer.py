@@ -291,7 +291,8 @@ def test_pipeline_executor_matches_reference(depth, defer, script):
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """A fresh interpreter imports every module of the port and
     ``chip_smoke`` (the two-view bootstrap's, the mapper's, the runners',
-    the sources' and the ROS adapters' among them); neither JAX, any
+    the sources', the ROS adapters' and the multi-device ``parallel/``
+    package's among them); neither JAX, any
     ``thor_slam_tpu`` module, pyyaml, cv2, depthai nor rclpy loads."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -306,7 +307,8 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
         "for name in ('engine.epipolar', 'pipeline.mapper', 'mapping.mesh', 'scripts.run_pipeline', 'camera.utils',\n"
         "             'camera.sources.dataset', 'camera.sources.luxonis', 'slam.adapters.external_ros',\n"
         "             'slam.adapters.ros_bridge', 'slam.adapters.null_engine', 'scripts.run_euroc',\n"
-        "             'scripts.make_euroc_synthetic', 'scripts.find_cameras', 'scripts.publish_odom_tf'):\n"
+        "             'scripts.make_euroc_synthetic', 'scripts.find_cameras', 'scripts.publish_odom_tf',\n"
+        "             'parallel', 'parallel.mesh', 'parallel.dryrun'):\n"
         "    assert 'thor_slam_tpu_torch.' + name in mods, mods\n"
         "print(len(mods))\n"
     )

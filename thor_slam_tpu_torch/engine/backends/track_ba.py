@@ -18,6 +18,7 @@ import torch
 
 from thor_slam_tpu_torch.engine import ba
 from thor_slam_tpu_torch.engine import tracker as trk
+from thor_slam_tpu_torch.parallel.mesh import ShardedTrackerState
 
 _ID_PAD = np.iinfo(np.int32).max  # sorts after every real id
 
@@ -34,8 +35,13 @@ def apply_correction(
     ``t_corr`` (4, 4) left-multiplies every pose of the state (and rotates
     its velocity); landmarks whose id appears in the sorted ``upd_ids``
     (L,) int32, padded with int32 max, with ``upd_ok`` set, take their
-    ``upd_pos`` (L, 3) position.
+    ``upd_pos`` (L, 3) position. A sharded state is corrected shard by
+    shard: the write is elementwise by id.
     """
+    if isinstance(state, ShardedTrackerState):
+        return state.per_shard(
+            lambda s: apply_correction(s, *(v.to(s.lm_id.device) for v in (t_corr, upd_ids, upd_pos, upd_ok)))
+        )
     l_cap = upd_ids.shape[0]
     idx = torch.clamp(torch.searchsorted(upd_ids, state.lm_id.contiguous()), 0, l_cap - 1)
     hit = (upd_ids[idx] == state.lm_id) & state.lm_valid & upd_ok[idx]

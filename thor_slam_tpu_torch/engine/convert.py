@@ -48,12 +48,14 @@ def setup_to_torch(setup: Any, device: torch.device | str) -> CameraSetup:
 
 
 def state_to_torch(state: Any, device: torch.device | str) -> TrackerState:
-    """The reference's ``TrackerState`` fields as arrays -> the port's state."""
+    """The reference's ``TrackerState`` fields as arrays -> the port's full
+    state (``parallel.mesh.shard_state`` places it on a mesh)."""
     return TrackerState(**{f: _to_torch(f, _field(state, f), device) for f in TrackerState._fields})
 
 
 def state_to_numpy(state: TrackerState) -> dict[str, np.ndarray]:
-    """The port's state -> numpy arrays in the reference's dtypes (no key)."""
+    """The port's state -> numpy arrays in the reference's dtypes (no key).
+    A sharded state gives its full (gathered) fields."""
     out = {}
     for f in TrackerState._fields:
         a = getattr(state, f).detach().cpu().numpy()

@@ -8,7 +8,9 @@ lifted through ``map_t_odom``) and carries the place database, which is
 what makes relocalization work after loading it.
 
 Each function takes the engine (:class:`~thor_slam_tpu_torch.engine.
-torch_engine.TorchSlamEngine`) whose state it reads or rewrites.
+torch_engine.TorchSlamEngine`) whose state it reads or rewrites. A sharded
+state (``devices`` > 1) reads as the full state and re-shards what
+``_replace`` gives it, so the files are the same on any mesh.
 """
 
 from __future__ import annotations
@@ -125,7 +127,7 @@ def load_state(engine, path) -> bool:
         return False
     fields = convert.state_to_numpy(trk.init_state(engine._params, "cpu"))
     fields.update({f: data[f] for f in trk.TrackerState._fields if f in data})
-    engine._tracker_state = convert.state_to_torch(fields, engine._device)
+    engine._tracker_state = engine._place_state(convert.state_to_torch(fields, engine._device))
     if "map_t_odom" in data:
         engine._map_t_odom = np.asarray(data["map_t_odom"], np.float64)
     # The restored state starts a fresh shadow and correction epoch.

@@ -1,7 +1,8 @@
 """TorchSlamEngine: the SlamEngine backed by the PyTorch/CUDA tracker.
 
-Multi-camera SLAM on one device, with the reference ``TpuSlamEngine``'s
-backends and modes, on stereo, mixed (stereo + mono) and all-mono rigs.
+Multi-camera SLAM on one device or a mesh of them, with the reference
+``TpuSlamEngine``'s backends and modes, on stereo, mixed (stereo + mono)
+and all-mono rigs.
 Each :meth:`process_frames`
 
 1. asks the light-tick scheduler (:class:`~thor_slam_tpu_torch.engine.
@@ -15,7 +16,9 @@ Each :meth:`process_frames`
 3. dispatches the tick (:meth:`_dispatch_tick`): a relocalization attempt
    when armed (rate-limited; every in-flight tick is finalized first), the
    IMU prediction (:class:`~thor_slam_tpu_torch.engine.backends.
-   ImuFusion`), one :func:`tracker.track_step`, the packing of its fresh
+   ImuFusion`), one :func:`tracker.track_step` (the sharded step of
+   :mod:`~thor_slam_tpu_torch.parallel.mesh` with ``devices`` > 1), the
+   packing of its fresh
    outputs and their device-to-host copies into pinned memory behind one
    event; on an all-mono rig without a map, the two-view bootstrap
    (:func:`tracker.mono_init`, every other tick, one 4-float readback an
@@ -47,8 +50,11 @@ translation between its two views), so the metric subsystems are switched
 off for it at :meth:`initialize`: window BA, and the accelerometer term of
 the IMU prediction (the gyro's rotation prediction stays).
 
-Not ported yet: tracking over more than one device (``devices`` > 1
-raises ``NotImplementedError``, ROADMAP Queue 1 #15).
+With ``devices`` > 1 one process drives a mesh of shards (cameras when
+they divide the mesh, landmark slots otherwise): the state is a
+:class:`~thor_slam_tpu_torch.parallel.mesh.ShardedTrackerState`, which the
+host backends read as the full state, light ticks are off, and the
+pipelined uploader's one staged buffer is copied to each shard by the step.
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ from thor_slam_tpu_torch.engine.backends import ImuFusion, LightController, Loop
 from thor_slam_tpu_torch.engine.backends.imu_fusion import IMU_NOISE_KEYS
 from thor_slam_tpu_torch.engine.pipeline_exec import PipelineExecutor
 from thor_slam_tpu_torch.engine.setup import build_camera_setup
+from thor_slam_tpu_torch.parallel import mesh as mesh_mod
 from thor_slam_tpu_torch.pipeline.transfer import DoubleBufferedUploader
 from thor_slam_tpu_torch.utils import cuda_lib
 from thor_slam_tpu_torch.utils.platform import pin_precision, select_device
@@ -92,9 +99,9 @@ class TorchSlamEngine(SlamEngine):
     """Multi-camera SLAM on a CUDA device.
 
     The arguments and their defaults are the reference's
-    (``TpuSlamEngine``), ``devices`` > 1 aside: bundle adjustment, IMU
-    fusion with the accelerometer term, auto-relocalization, light ticks
-    (one device) and the adaptive half-resolution controller are on; loop
+    (``TpuSlamEngine``): bundle adjustment, IMU fusion with the
+    accelerometer term, auto-relocalization, light ticks (one device) and
+    the adaptive half-resolution controller are on; loop
     closure follows ``SlamConfig.enable_loop_closure`` (on by default).
 
     Args:
@@ -132,10 +139,13 @@ class TorchSlamEngine(SlamEngine):
             the stream; ``process_frames`` returns None and
             :attr:`last_flush_poses` holds every tick's pose. Loop closure
             is switched off (it needs finalized keyframes mid-stream).
-        devices: Tracking over more than one device is not ported yet
-            (ROADMAP Queue 1 #15): anything but None or 1 raises
-            ``NotImplementedError``. (The reference refuses a mono source
-            on more than one device; here that refusal is this one.)
+        devices: Track over N devices (:mod:`~thor_slam_tpu_torch.
+            parallel.mesh`): ``cuda:0`` .. ``cuda:N-1`` (``initialize``
+            raises ``RuntimeError`` when fewer are visible), or N virtual
+            shards with ``device="cpu"``. A sequence of devices is the
+            mesh as given, repeats included (N shards on one card). The
+            axis is the cameras when they divide N, the landmark slots
+            otherwise; mono sources are refused at ``initialize``.
         light_ticks: Ship the left images only on ticks the host predicts
             will not keyframe (:class:`LightController`); None means on
             for one device unless ``defer_sync``.
@@ -192,8 +202,6 @@ class TorchSlamEngine(SlamEngine):
         device: str | torch.device | None = None,
         seed: int = 0,
     ) -> None:
-        if devices not in (None, 1):
-            raise NotImplementedError("devices > 1: multi-GPU tracking (ROADMAP Queue 1 #15)")
         if pipeline_depth < 1:
             raise ValueError("pipeline_depth must be >= 1")
         if defer_sync and not pipelined:
@@ -257,6 +265,10 @@ class TorchSlamEngine(SlamEngine):
         self._auto_reloc = bool(auto_relocalize)
         self._reloc_interval = max(1, int(reloc_attempt_interval))
         self._device_arg = device
+        self._devices_arg = devices
+        self._n_devices = int(devices or 1) if isinstance(devices, (int, type(None))) else len(devices)
+        self._mesh = None  # resolved at initialize()
+        self._step = None
         self._seed = seed
         self._config = SlamConfig()
         self._state_enum = TrackingState.NOT_INITIALIZED
@@ -264,7 +276,7 @@ class TorchSlamEngine(SlamEngine):
         self._params: trk.TrackerParams | None = None
         self._setup: trk.CameraSetup | None = None
         self._tracker_state: trk.TrackerState | None = None
-        self._generator: torch.Generator | None = None
+        self._generator: torch.Generator | list[torch.Generator] | None = None  # a list on a mesh
         self._source_order: list[str] = []
         self._zero_img: np.ndarray | None = None
         self._all_mono = False  # resolved at initialize()
@@ -335,6 +347,11 @@ class TorchSlamEngine(SlamEngine):
                     lever * 100.0,
                 )
         has_mono = not bool(setup_np.stereo_mask.all())
+        if has_mono and self._n_devices > 1:
+            raise RuntimeError(
+                "mono sources are not supported under SPMD (devices > 1): "
+                "cross-camera landmark seeding needs the full keyframe bank"
+            )
         self._all_mono = has_mono and not bool(setup_np.stereo_mask.any())
         if self._all_mono:
             if self._enable_ba:
@@ -352,15 +369,24 @@ class TorchSlamEngine(SlamEngine):
             has_mono=has_mono, mono_bootstrap=self._all_mono, **self._param_overrides,
         )
         self._device = select_device(self._device_arg)
+        if self._n_devices > 1:
+            self._mesh = self._make_mesh()
+            self._device = self._mesh.devices[0]
         pin_precision()
         if self._device.type == "cuda":
             cuda_lib.load()  # build the kernels now, not on the first tick
         self._setup = convert.setup_to_torch(setup_np, self._device)
+        if self._mesh is not None:
+            axis_mode = mesh_mod.choose_axis(self._params.num_cams, self._params.max_keypoints, self._n_devices)
+            self._step = mesh_mod.make_sharded_track_step(self._params, self._setup, self._mesh, axis_mode)
+            logger.info("SPMD tracking over %d devices (%s-sharded)", self._n_devices, axis_mode)
         self._ba.bind(self._setup, self._params.num_cams, mono_obs_weight=self._params.mono_obs_weight)
         self._loop.bind(self._setup, self._params.max_keypoints)
         # Light-tick scheduling and the adaptive controller: the variants
         # the reference compiles need nothing here.
-        self._light_ctl.resolve(1, self._defer_sync, height, width, getattr(self._config, "expected_fps", 0.0) or 0.0)
+        self._light_ctl.resolve(
+            self._n_devices, self._defer_sync, height, width, getattr(self._config, "expected_fps", 0.0) or 0.0
+        )
         # One-time solver and transform set-up here, not in a tick.
         if self._enable_ba:
             self._ba.warm()
@@ -369,10 +395,10 @@ class TorchSlamEngine(SlamEngine):
         self._zero_img = np.zeros((height, width), np.uint8)
         if self._prewarm_degraded:
             # The masked-camera path once, on a throwaway state and draws.
-            trk.track_step(
-                self._params, self._setup, trk.init_state(self._params, self._device),
+            self._track(
+                self._fresh_state(),
                 torch.zeros((self._params.num_cams, 2, height, width), dtype=torch.uint8, device=self._device),
-                generator=torch.Generator(device=self._device).manual_seed(self._seed),
+                self._fresh_generator(),
                 cam_active=torch.ones(self._params.num_cams, dtype=torch.bool, device=self._device),
             )
         self.reset()
@@ -383,6 +409,41 @@ class TorchSlamEngine(SlamEngine):
             self._params.num_cams, width, height, self._device, self._enable_ba, self._use_imu,
             self._config.enable_loop_closure, self._pipelined, self._pipeline_depth, self._light_ctl.light,
         )
+
+    def _make_mesh(self) -> mesh_mod.Mesh:
+        """The mesh of ``devices``: as given, N virtual shards on the
+        CPU, or the first N CUDA devices (``RuntimeError`` when fewer are
+        visible)."""
+        if not isinstance(self._devices_arg, int):
+            return mesh_mod.make_camera_mesh(devices=self._devices_arg)
+        if self._device.type == "cpu":
+            return mesh_mod.make_camera_mesh(self._n_devices, "cpu")
+        return mesh_mod.make_camera_mesh(self._n_devices)
+
+    def _fresh_state(self):
+        """A new tracker state, sharded over the mesh if there is one."""
+        return self._place_state(trk.init_state(self._params, self._device))
+
+    def _place_state(self, state: trk.TrackerState):
+        """A full-size state as the engine holds it (sharded on a mesh)."""
+        if self._mesh is None:
+            return state
+        return mesh_mod.shard_state(state, self._mesh, self._step.axis_mode)
+
+    def _fresh_generator(self):
+        """The RANSAC draws' generator (one per shard on a mesh)."""
+        if self._mesh is None:
+            return torch.Generator(device=self._device).manual_seed(self._seed)
+        return mesh_mod.shard_generators(self._mesh, self._seed)
+
+    def _track(self, state, images, generator, cam_active=None, pose_prediction=None, light=False, half=False):
+        """One step of the tracker: ``track_step``, or the sharded step."""
+        if self._mesh is None:
+            return trk.track_step(
+                self._params, self._setup, state, images, generator=generator, cam_active=cam_active,
+                pose_prediction=pose_prediction, allow_refresh=not light, half_res=half,
+            )
+        return self._step(state, images, generators=generator, cam_active=cam_active, pose_prediction=pose_prediction)
 
     # ------------------------------------------------------------ tracking
 
@@ -471,11 +532,10 @@ class TorchSlamEngine(SlamEngine):
                 [name not in frame_set.stale_sources for name in self._source_order], device=self._device
             )
         self._light_ctl.note_dispatch(light)
-        self._tracker_state, out = trk.track_step(
-            self._params, self._setup, self._tracker_state, images,
-            generator=self._generator, cam_active=cam_active,
+        self._tracker_state, out = self._track(
+            self._tracker_state, images, self._generator, cam_active=cam_active,
             pose_prediction=None if prediction is None else torch.from_numpy(prediction).to(self._device),
-            allow_refresh=not light, half_res=half,
+            light=light, half=half,
         )
         # Only freshly packed tensors enter the record, never one that
         # aliases the state: BA writes into the state before this record
@@ -810,8 +870,8 @@ class TorchSlamEngine(SlamEngine):
         """A fresh state; in-flight ticks are dropped and the uploader's
         thread is stopped (a new one starts with the next pipelined tick)."""
         if self._params is not None:
-            self._tracker_state = trk.init_state(self._params, self._device)
-            self._generator = torch.Generator(device=self._device).manual_seed(self._seed)
+            self._tracker_state = self._fresh_state()
+            self._generator = self._fresh_generator()
         self._clear_host_state()
         if self._state_enum != TrackingState.NOT_INITIALIZED:
             self._state_enum = TrackingState.INITIALIZING

@@ -597,7 +597,7 @@ def mint_bank(
     cand_id: torch.Tensor,
     fresh_ids: torch.Tensor,
     cam_active: torch.Tensor | None,
-    cand_weight: torch.Tensor,
+    cand_weight: torch.Tensor | None = None,
     cand_pending: torch.Tensor | None = None,
     cand_anchor_px: torch.Tensor | None = None,
     prev_kf_pose: torch.Tensor | None = None,
@@ -607,7 +607,8 @@ def mint_bank(
     New landmarks are the triangulated points lifted to world with the new
     pose, except where a fresh keypoint lands within ``persist_radius_px``
     of a trusted tracked candidate: it inherits that candidate's world
-    position, id and weight, anchoring the world frame across keyframes.
+    position, id and weight (1 without ``cand_weight``), anchoring the
+    world frame across keyframes.
 
     All-mono rigs (``mono_bootstrap``, with ``cand_pending``, the
     candidates' ``cand_anchor_px`` at the previous keyframe and that
@@ -648,7 +649,11 @@ def mint_bank(
     lm_pos = torch.where(inherits[..., None], _take(cand_pos_w, nearest), pts_w)
     lm_valid = kf.tri_valid | (inherits & kf.kp_valid)
     lm_id = torch.where(inherits, _take(cand_id, nearest), fresh_ids)
-    lm_weight = torch.where(inherits, _take(cand_weight, nearest), 1.0)
+    lm_weight = (
+        torch.where(inherits, _take(cand_weight, nearest), 1.0)
+        if cand_weight is not None
+        else torch.ones_like(lm_valid, dtype=torch.float32)
+    )
     lm_pending = torch.zeros_like(lm_valid)
     if all_mono:
         # An inheriting slot keeps its candidate's flag (cleared if it was
@@ -698,10 +703,25 @@ def _finish_step(
     covariance: torch.Tensor,
     cam_active: torch.Tensor | None = None,
     allow_refresh: bool = True,
+    fresh_id_base: torch.Tensor | None = None,
+    id_advance: int | None = None,
+    keyframe_minter=None,
+    refresh: bool | None = None,
 ) -> tuple[TrackerState, TrackOutput]:
     """Back half of a tick: acceptance, keyframe policy, state update.
     ``allow_refresh=False`` (a light tick) neither refreshes nor restarts
-    and reads nothing back."""
+    and reads nothing back.
+
+    The sharded step (:mod:`thor_slam_tpu_torch.parallel.mesh`) calls this
+    once per shard, with the reference's three hooks: ``fresh_id_base``
+    (default ``lm_id_counter``) is where this shard's fresh ids start and
+    ``id_advance`` (default C * N) how far the replicated counter moves at
+    a keyframe, so that ids stay unique across camera shards;
+    ``keyframe_minter(world_t_body)`` replaces the whole keyframe branch
+    (slot sharding mints this shard's slots of a full-image detection).
+    ``refresh`` is the keyframe decision when the caller has read it
+    already (every shard decides alike): it is not read back again.
+    """
     p = params
     tracked = num_inliers >= p.min_track_inliers
     body_t_world = torch.where(tracked, body_t_world, init_body_t_world)
@@ -735,12 +755,14 @@ def _finish_step(
 
     c_, n_ = p.num_cams, p.max_keypoints
     # A full tick's one readback: it selects the branch.
-    refresh = bool(refresh_t) if allow_refresh else False
-    if refresh:
+    if refresh is None:
+        refresh = bool(refresh_t) if allow_refresh else False
+    if refresh and keyframe_minter is not None:
+        bank = keyframe_minter(world_t_body)
+    elif refresh:
         kf = run_keyframe_frontend(p, setup, images)
-        fresh_ids = state.lm_id_counter + torch.arange(
-            c_ * n_, dtype=torch.int32, device=state.lm_id.device
-        ).reshape(c_, n_)
+        base = state.lm_id_counter if fresh_id_base is None else fresh_id_base
+        fresh_ids = base + torch.arange(c_ * n_, dtype=torch.int32, device=state.lm_id.device).reshape(c_, n_)
         bank = mint_bank(
             p, setup, world_t_body, kf,
             anchor_ok=hot.corr_valid & inliers_cn,  # trusted tracks
@@ -777,7 +799,9 @@ def _finish_step(
         lm_robs_px=lm_robs_px,
         lm_robs_valid=lm_robs_valid,
         lm_id=lm_id,
-        lm_id_counter=state.lm_id_counter + c_ * n_ if refresh else state.lm_id_counter,
+        lm_id_counter=state.lm_id_counter + (c_ * n_ if id_advance is None else id_advance)
+        if refresh
+        else state.lm_id_counter,
         kf_world_t_body=world_t_body if refresh else state.kf_world_t_body,
         prev_left0=hot.left,
         prev_left1=hot.cur_pyr1,

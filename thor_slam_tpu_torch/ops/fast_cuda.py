@@ -80,10 +80,13 @@ def fast_scores_cuda(images: torch.Tensor, threshold: float) -> tuple[torch.Tens
     c, h, w = images.shape
     raw = torch.empty_like(images)
     nms = torch.empty_like(images)
-    stream = torch.cuda.current_stream(images.device).cuda_stream
-    status = lib.thor_fast_nms(
-        images.data_ptr(), raw.data_ptr(), nms.data_ptr(), c, h, w, float(threshold), stream
-    )
+    # The library launches on the host thread's current device: make it the
+    # tensors' one, whose stream the launch takes.
+    with torch.cuda.device(images.device):
+        status = lib.thor_fast_nms(
+            images.data_ptr(), raw.data_ptr(), nms.data_ptr(), c, h, w, float(threshold),
+            torch.cuda.current_stream(images.device).cuda_stream,
+        )
     cuda_lib.check(status, "thor_fast_nms")
     counts["kernel"] += 1
     return raw, nms

@@ -90,11 +90,14 @@ def _launch(
     out = torch.empty((n * m, size, size), dtype=torch.float32, device=first.device)
     clipped = torch.empty((n * m, 2), dtype=torch.int32, device=first.device) if want_clipped else None
     last = stacks[-1]
-    status = lib.thor_patches_gather(
-        first.data_ptr(), last.data_ptr(), first.stride(0), last.stride(0), cam.data_ptr(), centers.data_ptr(),
-        out.data_ptr(), clipped.data_ptr() if want_clipped else None, n, c, h, w, m, size,
-        torch.cuda.current_stream(first.device).cuda_stream,
-    )
+    # The library launches on the host thread's current device: make it the
+    # tensors' one, whose stream the launch takes.
+    with torch.cuda.device(first.device):
+        status = lib.thor_patches_gather(
+            first.data_ptr(), last.data_ptr(), first.stride(0), last.stride(0), cam.data_ptr(), centers.data_ptr(),
+            out.data_ptr(), clipped.data_ptr() if want_clipped else None, n, c, h, w, m, size,
+            torch.cuda.current_stream(first.device).cuda_stream,
+        )
     cuda_lib.check(status, "thor_patches_gather")
     counts["kernel"] += 1
     return out, clipped

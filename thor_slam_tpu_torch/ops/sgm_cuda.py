@@ -84,8 +84,11 @@ def _launch_scan(jobs: list[list[int]], d: int, p1: float, p2: float, device: to
     """One launch of the scan kernel running every job of ``jobs`` (at most 2)."""
     lib = cuda_lib.load()
     desc = (ctypes.c_longlong * (10 * len(jobs)))(*[v for job in jobs for v in job])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    cuda_lib.check(lib.thor_sgm_scan(len(jobs), desc, d, float(p1), float(p2), stream), "thor_sgm_scan")
+    # The library launches on the host thread's current device: make it the
+    # tensors' one, whose stream the launch takes.
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        cuda_lib.check(lib.thor_sgm_scan(len(jobs), desc, d, float(p1), float(p2), stream), "thor_sgm_scan")
     counts["sgm_scan"]["kernel"] += 1
 
 
@@ -258,11 +261,11 @@ def winner_lr_cuda(agg: torch.Tensor, num_disparities: int) -> tuple[torch.Tenso
     floats = [torch.empty((h, w), dtype=torch.float32, device=agg.device) for _ in range(4)]
     d_best, d_r_at = ints
     c0, cm, cp, second = floats
-    stream = torch.cuda.current_stream(agg.device).cuda_stream
-    status = lib.thor_sgm_winner_lr(
-        agg.data_ptr(), d, h, w, d_best.data_ptr(), c0.data_ptr(), cm.data_ptr(), cp.data_ptr(),
-        second.data_ptr(), d_r_at.data_ptr(), stream,
-    )
+    with torch.cuda.device(agg.device):  # as _launch_scan
+        status = lib.thor_sgm_winner_lr(
+            agg.data_ptr(), d, h, w, d_best.data_ptr(), c0.data_ptr(), cm.data_ptr(), cp.data_ptr(),
+            second.data_ptr(), d_r_at.data_ptr(), torch.cuda.current_stream(agg.device).cuda_stream,
+        )
     cuda_lib.check(status, "thor_sgm_winner_lr")
     counts["sgm_winner_lr"]["kernel"] += 1
     return d_best, c0, cm, cp, second, d_r_at

@@ -5,14 +5,16 @@ output lines: the accuracy path. Expects the standard ASL layout; if
 ``mav0/state_groundtruth_estimate0/data.csv`` exists, reports ATE-RMSE
 against it, for the odometry stream, the loop-corrected world estimate
 (after a closure) and the keyframes of the map. The engine runs on the
-card unless ``--cpu`` or ``--device`` says otherwise; ``--devices`` > 1
-(multi-GPU tracking, ROADMAP Queue 1 #15) returns 2.
+card unless ``--cpu`` or ``--device`` says otherwise; ``--devices N``
+tracks over N devices (landmark-slot sharding for this one camera), N
+virtual shards with ``--cpu``.
 
 Usage:
     python -m thor_slam_tpu_torch.scripts.run_euroc --sequence /data/euroc/MH_01_easy \
            [--frames 500] [--out traj.csv]
     python -m thor_slam_tpu_torch.scripts.make_euroc_synthetic --out /tmp/seq
     python -m thor_slam_tpu_torch.scripts.run_euroc --sequence /tmp/seq --cpu
+    python -m thor_slam_tpu_torch.scripts.run_euroc --sequence /tmp/seq --cpu --devices 2
 """
 
 from __future__ import annotations
@@ -97,20 +99,14 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--devices", type=int, default=None,
-        help="Track over N devices (multi-GPU tracking is not ported yet: "
-        "ROADMAP Queue 1 #15; N > 1 returns 2)",
+        help="Track over an N-device mesh (landmark-slot sharding for this "
+        "single-camera sequence; with --cpu, N virtual shards)",
     )
     parser.add_argument("--cpu", action="store_true", help="Run on the CPU (same as --device cpu)")
     parser.add_argument("--device", default=None, help="Compute device (default: the current CUDA device)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
-    if args.devices is not None and args.devices > 1:
-        logger.error(
-            "--devices %d: multi-GPU tracking is not ported yet (ROADMAP Queue 1 #15)", args.devices
-        )
-        return 2
-
     from thor_slam_tpu_torch.camera.rig import CameraRig
     from thor_slam_tpu_torch.camera.sources.dataset import EurocCameraSource
     from thor_slam_tpu_torch.slam.interface import SlamConfig
