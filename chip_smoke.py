@@ -150,6 +150,24 @@ tree it shows which gate an outcome of that phase turned on. It
    ATE < 5 cm, TRACKING by tick 3 and on >= 90 % after, within 0.02 m of
    the slice's poses; (b) TRACKING on >= 90 % after the first keyframe and
    an ATE within 2x the single device's.
+12. the measurement tools (``measure:`` lines). First the gather and FAST
+   against their plain versions at this phase's shapes (random stacks at
+   512 and 256 keypoints a camera, and the flagship's own frames); the
+   demos' SGM volume (D = 64, 200x320) is one of the kernel phase's
+   shapes. Then ``profile_stages`` with ``--e2e --default`` at 640x400
+   with 4 cameras and at 752x480 with 1 (the EuRoC runner's shape; its
+   ``--e2e`` split with the runner's engine, by tick type),
+   ``ablate_step`` at 640x400 (each variant paired step by step with a
+   FULL run of its own), the demos ``rgbd_stream`` (grayscale and
+   ``--color``, 3 frames each) and ``test_stream_resolutions`` on the
+   card, then the device render of 2 flagship frames against the host
+   render (uint8-equal on >= 99.9 % of the pixels). Asserts the gather
+   and FAST launches of every stage row and ablation run (the slice's
+   identity, less what a stub removes), the SGM scan launches of every
+   RGB-D product (as the slice counts them) and 0 plain calls. CPU
+   rehearsal: ``run_measure(cpu, 4, shapes=(("160x100", "1", ()),),
+   ablate_res="128x96", reps=2, ticks=3, render_cams=2, render_res=(128,
+   96), kernels=False)`` (~1 min).
 
 Every phase's frames are rendered ahead by a pool of worker processes (a
 frame is a deterministic function of its index), which are idle while ticks
@@ -170,6 +188,8 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import multiprocessing
 import os
@@ -185,7 +205,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from thor_slam_tpu_torch.utils.profiling import LAUNCH_CALLS, kernel_counts, reset_kernel_counts
+
 REPO = Path(__file__).resolve().parent
+#: The tracker's kernels: the counts its phases hold to their identities.
+TRACKER_KERNELS = ("patch_gather", "fast9_nms")
 TICKS = 40
 WARMUP_TICKS = 3
 SEED = 0
@@ -199,9 +223,10 @@ MIN_VALID_SHARE = 0.3
 P1, P2 = 6.0, 96.0  # sgm_disparity's default penalties
 # Kernel checks: (D, H, W) at the disparity counts the port takes, with H
 # and W multiples of no tile of either SGM kernel, H = 1 and W < D; then
-# the flagship (D = 64, 400x640) and the 720p geometry (D = 96).
+# the flagship (D = 64, 400x640), the RGB-D demos' (D = 64, 200x320) and
+# the 720p geometry (D = 96).
 SGM_SHAPES = [(48, 37, 203), (64, 1, 50), (64, 45, 37), (96, 23, 61), (256, 9, 100), (256, 3, 300),
-              (64, 400, 640), (96, 720, 1280)]
+              (64, 400, 640), (64, 200, 320), (96, 720, 1280)]
 SGM_PENALTIES = [(P1, P2), (6.5, 97.25)]  # integral, non-integral
 GRAPH_CALLS = 20  # calls captured in the graph a device time replays
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -335,6 +360,18 @@ SPMD_SLOT_SHARDS = 2
 SPMD_EUROC_FRAMES = 80
 SPMD_MAX_POSE_DIFF_M = 0.02  # the reference's bar (tests/test_parallel.py)
 SPMD_MAX_ATE_FACTOR = 2.0  # slot-sharded ATE against the single device's (tests/test_engine_spmd.py)
+# Phase 12: the measurement tools on the card. profile_stages at the slice's
+# shape and at the EuRoC runner's (one camera, 752x480, its --e2e split with
+# the runner's engine), each with --e2e and --default; ablate_step at the
+# slice's shape; the two SGM demos; the device render against the host render
+# on MEASURE_RENDER_FRAMES flagship frames (uint8-equal on MIN_RENDER_U8_EQUAL
+# of the pixels, the bar of tests/test_torch_measure.py). The keypoints a
+# camera of the stage rows and the ablation, and of --e2e and --default.
+MEASURE_SHAPES = (("640x400", "4", ()), ("752x480", "1", ("--e2e-engine", "euroc")))
+MEASURE_KEYPOINTS = (512, 256)
+MEASURE_ABLATE_RES = "640x400"
+MEASURE_RENDER_FRAMES = 2
+MIN_RENDER_U8_EQUAL = 0.999
 # --tick-launches: ticks under the profiler, then unprofiled ticks.
 PROFILE_TICKS = 28  # the slice refreshes about every 13th tick: two keyframes
 TIMED_TICKS = 30
@@ -786,7 +823,6 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     from thor_slam_tpu_torch.slam.interface import SlamConfig, TrackingState
     from thor_slam_tpu_torch.utils.evaluation import ate_rmse
     from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
-    from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda, sgm_cuda
     from thor_slam_tpu_torch.pipeline import RGBDProcessor
     from thor_slam_tpu_torch.utils.flagship import flagship_rig
 
@@ -833,9 +869,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
     engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **PR6_MODES)
     engine.initialize(calibration, config)
     torch.cuda.synchronize()
-    patches_cuda.reset_counts()
-    fast_cuda.reset_counts()
-    sgm_cuda.reset_counts()
+    reset_kernel_counts()
     tick_ms, refreshed, states, est, gt, positions = [], [], [], [], [], []
     rgbd_ms, rgbd_acc, rgbd_items = [], [], []
     gt0 = traj.pose(frames[0].timestamp)
@@ -860,11 +894,7 @@ def run_slice(dev, scan_launches: int, pool=None) -> dict:
             # The mapping phase integrates this tick's product at this pose.
             rgbd_items.append(dict(tick=i, frame_set=fs, color=colors[i], truth=truth[i],
                                    world_t_body=pose.to_4x4_matrix()))
-    counts = {
-        "patch_gather": dict(patches_cuda.counts),
-        "fast9_nms": dict(fast_cuda.counts),
-        **{name: dict(c) for name, c in sgm_cuda.counts.items()},
-    }
+    counts = kernel_counts()
     inliers = engine.last_diagnostics["num_inliers"]
     keyframes = int(sum(refreshed))
     ate = ate_rmse(np.asarray(est), np.asarray(gt))
@@ -997,19 +1027,6 @@ def sync_ms(dev, fn, reps: int = 5) -> float:
         _sync(dev)
         times.append(1e3 * (time.perf_counter() - t))
     return statistics.median(times)
-
-
-def _counts() -> dict:
-    from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
-
-    return {"patch_gather": dict(patches_cuda.counts), "fast9_nms": dict(fast_cuda.counts)}
-
-
-def _reset_counts() -> None:
-    from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
-
-    patches_cuda.reset_counts()
-    fast_cuda.reset_counts()
 
 
 def render_session(num_cams, width, height, max_keypoints, ticks, clock_offsets=None, blackout=(), pool=None):
@@ -1268,12 +1285,12 @@ def _relocalize_session(dev, engine, inputs: dict, out: dict, label: str, overri
     attempt = eng2._loop.relocalize_attempt
 
     def counted_attempt(*args, **kwargs):
-        before = _counts()
+        before = kernel_counts(TRACKER_KERNELS)
         _sync(dev)
         t = time.perf_counter()
         pose = attempt(*args, **kwargs)
         _sync(dev)
-        after = _counts()
+        after = kernel_counts(TRACKER_KERNELS)
         attempts.append(dict(
             ok=pose is not None,
             ms=1e3 * (time.perf_counter() - t),
@@ -1283,7 +1300,7 @@ def _relocalize_session(dev, engine, inputs: dict, out: dict, label: str, overri
 
     eng2._loop.relocalize_attempt = counted_attempt
     eng2.relocalize()
-    _reset_counts()
+    reset_kernel_counts(TRACKER_KERNELS)
     poses = [eng2.process_frames(fs) for fs in frames2]
     poses.append(eng2.flush())
     errs = []
@@ -1296,7 +1313,7 @@ def _relocalize_session(dev, engine, inputs: dict, out: dict, label: str, overri
         reloc_ok=not eng2._want_reloc,
         reloc_state=eng2.get_tracking_state(),
         reloc_errs=errs,
-        counts_session2=_counts(),
+        counts_session2=kernel_counts(TRACKER_KERNELS),
     )
     eng2.shutdown()
     print(
@@ -1382,7 +1399,7 @@ def _drive(engine, frames, traj, dev, on_tick=None) -> dict:
 
     log = log_finalized(engine)
     _sync(dev)
-    _reset_counts()
+    reset_kernel_counts(TRACKER_KERNELS)
     gt0 = traj.pose(frames[0].timestamp)
     tick_ms, returned = [], []
     t_run = time.perf_counter()
@@ -1401,7 +1418,8 @@ def _drive(engine, frames, traj, dev, on_tick=None) -> dict:
     states = [e["state"] for e in log]
     first = next((i for i, s in enumerate(states) if s == TrackingState.TRACKING), None)
     return dict(
-        log=log, returned=returned, tail=tail, tick_ms=tick_ms, run_s=run_s, counts=_counts(), poses=poses,
+        log=log, returned=returned, tail=tail, tick_ms=tick_ms, run_s=run_s, counts=kernel_counts(TRACKER_KERNELS),
+        poses=poses,
         keyframes=int(sum(bool(e["diag"]["refreshed"]) for e in log)), states=states,
         est=np.asarray([p.position for p in poses if p is not None]),
         gt=np.asarray([(np.linalg.inv(gt0) @ traj.pose(p.timestamp))[:3, 3] for p in poses if p is not None]),
@@ -2118,16 +2136,12 @@ def run_runner(dev, klt_levels: int, scan_launches: int, runner_sources, kernels
     import contextlib
     import io
 
-    from thor_slam_tpu_torch.ops import sgm_cuda
     from thor_slam_tpu_torch.scripts import run_pipeline, run_slam
     from thor_slam_tpu_torch.utils.config import RunConfig
 
     cfg = RunConfig.from_dict(RUNNER_CONFIG)
     logs, at_ticks = [], []
     build_engine, build_sources = run_slam.build_engine, run_slam.build_synthetic_sources
-
-    def all_counts() -> dict:
-        return {**_counts(), **{name: dict(c) for name, c in sgm_cuda.counts.items()}}
 
     def logged_engine(cfg, device=None):
         engine = build_engine(cfg, device)
@@ -2139,7 +2153,7 @@ def run_runner(dev, klt_levels: int, scan_launches: int, runner_sources, kernels
             # once here: the ticks' identities hold on the counts after it.
             out = initialize(*args, **kwargs)
             _sync(dev)
-            at_ticks.append(all_counts())
+            at_ticks.append(kernel_counts())
             return out
 
         engine.initialize = counted_initialize
@@ -2149,8 +2163,7 @@ def run_runner(dev, klt_levels: int, scan_launches: int, runner_sources, kernels
     run_slam.build_engine, run_slam.build_synthetic_sources = logged_engine, lambda cfg: runner_sources
     try:
         _sync(dev)
-        _reset_counts()
-        sgm_cuda.reset_counts()
+        reset_kernel_counts()
         t = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = run_pipeline.run(cfg, max_frames=RUNNER_TICKS, rgbd_every=RGBD_EVERY, device=dev)
@@ -2162,7 +2175,7 @@ def run_runner(dev, klt_levels: int, scan_launches: int, runner_sources, kernels
     for line in text.splitlines():
         print(f"runner: {line}")
     (log,), (init,) = logs, at_ticks
-    counts = all_counts()
+    counts = kernel_counts()
     ticks = {k: {v: n - init[k][v] for v, n in c.items()} for k, c in counts.items()}
     r = dict(tick_ms=[None] * len(log), keyframes=int(sum(bool(e["diag"]["refreshed"]) for e in log)), counts=ticks)
     failures: list[str] = []
@@ -2231,7 +2244,7 @@ def _run_euroc_main(dev, seq_dir, argv=(), devices=None, on_call=None) -> dict:
         def counted_initialize(*a, **k):
             out = initialize(*a, **k)
             _sync(dev)
-            _reset_counts()
+            reset_kernel_counts(TRACKER_KERNELS)
             return out
 
         def timed_process(fs):
@@ -2255,7 +2268,8 @@ def _run_euroc_main(dev, seq_dir, argv=(), devices=None, on_call=None) -> dict:
     finally:
         run_euroc.build_engine = build_engine
     (engine,), (log,) = engines, logs
-    return dict(rc=rc, text=out.getvalue(), engine=engine, log=log, tick_ms=tick_ms, counts=_counts())
+    return dict(rc=rc, text=out.getvalue(), engine=engine, log=log, tick_ms=tick_ms,
+                counts=kernel_counts(TRACKER_KERNELS))
 
 
 def run_euroc_phase(dev, seq_args, kernels: bool = True) -> dict:
@@ -2475,8 +2489,6 @@ def run_spmd(dev, reuse: dict, seq_args, kernels: bool = True) -> dict:
     return launches
 
 
-#: Runtime calls that put work on the device, as torch.profiler names them.
-_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
 _COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy")
 #: Phase -> the phases nested in it (a parent's own count excludes them).
 _PHASES = {
@@ -2557,7 +2569,7 @@ def tick_launches(dev, width=640, height=400, max_keypoints=512) -> dict:
     def stamps(names):
         return np.sort(np.asarray([e.time_range.start for e in host if e.name in names], np.float64))
 
-    launch_t, copy_t = stamps(_LAUNCH_CALLS), stamps(_COPY_CALLS)
+    launch_t, copy_t = stamps(LAUNCH_CALLS), stamps(_COPY_CALLS)
     sync_t = stamps(("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize"))
     kernels = [e for e in events if e.device_type != DeviceType.CPU and not e.name.startswith("phase:")]
     device_us = sum(e.time_range.elapsed_us() for e in kernels)
@@ -2608,6 +2620,197 @@ def tick_launches(dev, width=640, height=400, max_keypoints=512) -> dict:
                           non_keyframe=statistics.median(hot) if hot else None, n=len(tick_ms), keyframes=len(kf))
     print(f"tick launches by phase (medians over {len(ticks)} profiled ticks): " + json.dumps(out))
     return out
+
+
+def _as_measure_lines(fn, *args, **kwargs):
+    """Call ``fn``; its standard output comes out as ``measure:`` lines (also
+    when it raises)."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kwargs)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"measure: {line}".rstrip(), flush=True)
+
+
+def _measure_counts(label: str, counts: dict, want: dict, ran: str, failures: list) -> None:
+    """Each kernel of ``want`` launched that often (``ran``: kernel or plain),
+    every other kernel not at all, no version of the other kind."""
+    other = "plain" if ran == "kernel" else "kernel"
+    got = {k: c[ran] for k, c in counts.items()}
+    if any(got[k] != want.get(k, 0) for k in got) or any(c[other] for c in counts.values()):
+        failures.append(f"{label}: launches {counts}, want {want} ({ran})")
+
+
+def check_measure_kernels(dev, shapes=MEASURE_SHAPES, kernels: bool = True) -> None:
+    """Phase 12's tracker kernels against their plain versions at the shapes
+    the phase gives them, before its counts are set to 0. For each
+    (WxH, C) of ``shapes``: FAST on (2C, H, W) random images (the stage
+    rows'), exactly; for N of MEASURE_KEYPOINTS, exactly, the single-stack
+    gather on such a stack (the BRIEF row: S = 37, M = 2C x N), the pair
+    gather at every KLT level (S = 19) and on the two eyes of one stack
+    (S = 37, strided), M = C x N, with centres past every border; then
+    both kernels on the flagship's own frames at N = 256
+    (:func:`check_on_rig_frames`). The demos' SGM volume is one of
+    SGM_SHAPES."""
+    from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda
+    from thor_slam_tpu_torch.scripts.profile_stages import flagship_syncs
+    from thor_slam_tpu_torch.utils.flagship import flagship_rig
+
+    if not kernels:
+        return
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 12)
+
+    def pair_exact(what, stacks, cam, centers, size):
+        got, clipped = patches_cuda.extract_patches_pair_cuda(*stacks, cam, centers, size)
+        want = torch.stack([patches_cuda.extract_patches_flat_plain(s, cam, k, size) for s, k in zip(stacks, centers)])
+        _, h, w = stacks[0].shape
+        r = size // 2
+        clamps = torch.stack([torch.clamp(centers[..., 0], r, w - r - 1),
+                              torch.clamp(centers[..., 1], r, h - r - 1)], -1)
+        if not torch.equal(got, want) or not torch.equal(clipped, clamps):
+            raise AssertionError(f"measure: the pair gather ({what}) differs from its plain version")
+
+    for res, cams, _ in shapes:
+        (w, h), c = (int(v) for v in res.split("x")), int(cams)
+        params = flagship_rig(num_cams=c, width=w, height=h)[0]
+        images = torch.rand((2 * c, h, w), generator=gen).to(dev)
+        raw_k, nms_k = fast_cuda.fast_scores_cuda(images, params.fast_threshold)
+        raw_p, nms_p = fast_cuda.fast_scores_plain(images, params.fast_threshold)
+        err = max(float((raw_k - raw_p).abs().max()), float((nms_k - nms_p).abs().max()))
+        if not err <= 1e-6:
+            raise AssertionError(f"measure: FAST differs from its plain version by {err} at {2 * c}x{h}x{w}")
+        for n in MEASURE_KEYPOINTS:
+            stacks, cam, centers = _gather_inputs(gen, (2 * c, h, w), 2 * c * n, dev)
+            got = patches_cuda.extract_patches_flat_cuda(stacks[0], cam, centers[0], 37)
+            if not torch.equal(got, patches_cuda.extract_patches_flat_plain(stacks[0], cam, centers[0], 37)):
+                raise AssertionError(f"measure: the gather (BRIEF row) differs at {2 * c}x{h}x{w}, M={2 * c * n}")
+            for level in range(params.klt_levels):
+                stacks, cam, centers = _gather_inputs(gen, (c, h >> level, w >> level), c * n, dev)
+                pair_exact(f"KLT level {level}, M=2x{c * n}", stacks, cam, centers, 19)
+            stacks, cam, centers = _gather_inputs(gen, (c, h, w), c * n, dev)
+            both = torch.stack(stacks, 1)
+            pair_exact(f"eyes, M=2x{c * n}", (both[:, 0], both[:, 1]), cam, centers, 37)
+        _sync(dev)
+        print(f"measure: kernels at {res} x {c}: fast9_nms C,H,W={2 * c},{h},{w} max_abs_err={err}; patch_gather "
+              f"single stack (S=37) and pair (each KLT level S=19, eyes S=37) exact at N in {MEASURE_KEYPOINTS}")
+        calibration, make_sync = flagship_syncs(w, h, c, 2, dev)
+        check_on_rig_frames(dev, f"measure {res} x {c}", [make_sync(0), make_sync(1)], calibration, 256)
+
+
+def run_measure(dev, scan_launches: int, shapes=MEASURE_SHAPES, ablate_res=MEASURE_ABLATE_RES, reps=None,
+                ticks=None, render_cams: int = 4, render_res=(640, 400), kernels: bool = True) -> dict:
+    """Phase 12 (``measure:`` lines): the port's measurement tools on the
+    card; returns the kernel launches of the phase. First every tracker
+    kernel against its plain version at the phase's shapes
+    (:func:`check_measure_kernels`). ``profile_stages`` at each of
+    ``shapes`` with ``--e2e --default`` (its stage rows' launches of the
+    gather and FAST held to what their calls imply: FAST one a call of the
+    detection, the gather one a call of BRIEF and one a KLT level,
+    ``track_step`` the slice's identity); ``ablate_step`` (each variant's
+    steps, and FULL's over all its pairings, hold the slice's identity,
+    less what its stub removes); the two SGM demos (``scan_launches`` scan
+    launches and at least one winner launch a product); the device render
+    against the host render. (On the CPU, ``kernels=False`` with small
+    ``shapes``, ``reps`` and ``ticks`` rehearses it with the plain
+    versions.)"""
+    from thor_slam_tpu_torch.engine.tracker import TrackerParams
+    from thor_slam_tpu_torch.examples import rgbd_stream, test_stream_resolutions
+    from thor_slam_tpu_torch.scripts import ablate_step, profile_stages
+    from thor_slam_tpu_torch.utils.flagship import flagship_rig, render_sequence
+
+    check_measure_kernels(dev, shapes, kernels)
+    ran = "kernel" if kernels else "plain"
+    failures: list[str] = []
+    total = {"patch_gather": 0, "fast9_nms": 0, "sgm_scan": 0, "sgm_winner_lr": 0}
+    extra = (["--reps", str(reps)] if reps else []) + (["--ticks", str(ticks)] if ticks else [])
+    levels = TrackerParams.__dataclass_fields__["klt_levels"].default  # the flagship's
+    for res, cams, args in shapes:
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = _as_measure_lines(profile_stages.run, [res, cams, "--e2e", "--default", "--device", str(dev), *args,
+                                                     *extra])
+        print(f"measure: profile_stages {res} {cams} {' '.join(args)} took {time.perf_counter() - t0:.1f} s")
+        for k, c in kernel_counts().items():
+            total[k] += c[ran]
+        for row in out["stages"]:
+            if row["name"] == "SUM of stages":
+                continue
+            calls, name = row["calls"], row["name"]
+            want = ({"fast9_nms": calls} if name.startswith("FAST detect")
+                    else {"patch_gather": calls} if name.startswith("BRIEF describe")
+                    else {"patch_gather": levels * calls} if name.startswith("KLT track")
+                    else {"patch_gather": levels * calls + row["keyframes"], "fast9_nms": row["keyframes"]}
+                    if name == "FULL track_step" else {})
+            _measure_counts(f"profile_stages {res} {cams}: {name}", row["counts"], want, ran, failures)
+            if kernels and want and not row["device_ms"] > 0:
+                print(f"measure: {name}: the profiler saw no kernel in its window (device ms not measured)")
+        if not all(np.isfinite(v) and v > 0 for v in (out["e2e"]["TOTAL"], *(r["ms_per_tick"]
+                                                                                 for r in out["default"].values()))):
+            failures.append(f"profile_stages {res} {cams}: e2e {out['e2e']}, default {out['default']}")
+    w, h = (int(v) for v in ablate_res.split("x"))
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    rows = _as_measure_lines(ablate_step.run, w, h, dev, **({"reps": reps} if reps else {}))
+    print(f"measure: ablate_step {ablate_res} took {time.perf_counter() - t0:.1f} s")
+    for k, c in kernel_counts().items():
+        total[k] += c[ran]
+    for row in rows:
+        steps, kfs = row["steps"], row["all_keyframes"]
+        klt = 0 if row["name"] == "no KLT" else levels * steps
+        brief = 0 if row["name"] == "no BRIEF" else kfs
+        want = {"patch_gather": klt + brief, "fast9_nms": 0 if row["name"] == "no FAST detect" else kfs}
+        _measure_counts(f"ablate_step: {row['name']}", row["counts"], want, ran, failures)
+        if row["name"] == "FULL" and kfs == 0:
+            failures.append("ablate_step: FULL made no keyframe")
+
+    # The two demos that run the RGB-D product (the SGM scan and winner kernels).
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_rgbd_")
+    try:
+        for name, fn, argv, products in (
+            ("rgbd_stream", rgbd_stream.main, ["--frames", "3", "--out", out_dir], 3),
+            ("rgbd_stream --color", rgbd_stream.main, ["--frames", "3", "--color", "--out", out_dir], 3),
+            ("test_stream_resolutions", test_stream_resolutions.main, [], 2),
+        ):
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            rc = _as_measure_lines(fn, [*argv, "--device", str(dev)])
+            counts = kernel_counts()
+            print(f"measure: {name} took {time.perf_counter() - t0:.1f} s (rc {rc}), SGM launches "
+                  f"{json.dumps({k: counts[k] for k in ('sgm_scan', 'sgm_winner_lr')})}")
+            sgm = {k: counts[k] for k in ("sgm_scan", "sgm_winner_lr")}
+            if (rc != 0 or sgm["sgm_scan"][ran] != scan_launches * products
+                    or sgm["sgm_winner_lr"][ran] < products or any(c["plain" if kernels else "kernel"]
+                                                                    for c in sgm.values())):
+                failures.append(f"{name}: rc {rc}, SGM launches {sgm} for {products} products, not "
+                                f"{scan_launches} scans each")
+            for k, c in counts.items():
+                total[k] += c[ran]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # The device render against the host render.
+    sources = flagship_rig(num_cams=render_cams, width=render_res[0], height=render_res[1])[3]
+    t0 = time.perf_counter()
+    host = render_sequence(sources, MEASURE_RENDER_FRAMES)
+    host_s = time.perf_counter() - t0
+    render_sequence(sources, 1, device=dev)  # warm
+    _sync(dev)
+    t0 = time.perf_counter()
+    on_dev = render_sequence(sources, MEASURE_RENDER_FRAMES, device=dev)
+    _sync(dev)
+    dev_s = time.perf_counter() - t0
+    u8 = lambda x: np.clip(np.asarray(x) * 255.0, 0, 255).astype(np.uint8)  # noqa: E731
+    equal = float((u8(on_dev.cpu().numpy()) == u8(host)).mean())
+    print(f"measure: render {MEASURE_RENDER_FRAMES} frames x {render_cams} cams x 2 eyes at "
+          f"{render_res[0]}x{render_res[1]}: host {1e3 * host_s:.1f} ms, device {1e3 * dev_s:.2f} ms; uint8-equal "
+          f"share {equal:.6f} (bar {MIN_RENDER_U8_EQUAL})")
+    if not equal >= MIN_RENDER_U8_EQUAL or on_dev.shape != host.shape:
+        failures.append(f"device render uint8-equal on {equal:.6f} of the pixels")
+    if failures:
+        raise AssertionError("measure phase: " + "; ".join(failures))
+    return total
 
 
 def main() -> int:
@@ -2744,6 +2947,10 @@ def main() -> int:
         deployed_paced_calls=deployed_run["paced_calls"],
         sync_calls_by_tick_type=syncs,
     )))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["measure"] = run_measure(dev, scan["launches_per_call"])
+    print(f"measure: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['measure'])}")
     for counts in phases.values():
         for name, n in counts.items():
             launches[name] += n

@@ -291,8 +291,9 @@ def test_pipeline_executor_matches_reference(depth, defer, script):
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """A fresh interpreter imports every module of the port and
     ``chip_smoke`` (the two-view bootstrap's, the mapper's, the runners',
-    the sources', the ROS adapters' and the multi-device ``parallel/``
-    package's among them); neither JAX, any
+    the sources', the ROS adapters', the multi-device ``parallel/``
+    package's, the measurement scripts', the device renderer's and the
+    demos' in ``examples/`` among them); neither JAX, any
     ``thor_slam_tpu`` module, pyyaml, cv2, depthai nor rclpy loads."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -308,7 +309,10 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
         "             'camera.sources.dataset', 'camera.sources.luxonis', 'slam.adapters.external_ros',\n"
         "             'slam.adapters.ros_bridge', 'slam.adapters.null_engine', 'scripts.run_euroc',\n"
         "             'scripts.make_euroc_synthetic', 'scripts.find_cameras', 'scripts.publish_odom_tf',\n"
-        "             'parallel', 'parallel.mesh', 'parallel.dryrun'):\n"
+        "             'parallel', 'parallel.mesh', 'parallel.dryrun', 'scripts.profile_stages',\n"
+        "             'scripts.ablate_step', 'utils.flagship', 'utils.profiling', 'camera.sources.synthetic_torch',\n"
+        "             'examples', 'examples.pull_extrinsics', 'examples.rgbd_stream', 'examples.test_camera_driver',\n"
+        "             'examples.test_camera_rig', 'examples.test_imu', 'examples.test_stream_resolutions'):\n"
         "    assert 'thor_slam_tpu_torch.' + name in mods, mods\n"
         "print(len(mods))\n"
     )
@@ -416,7 +420,8 @@ def test_config_errors_match_reference(tmp_path, text):
 
 def test_profiling_matches_reference():
     """Rate, EMA timers, status line and snapshot equal on one script of
-    ticks and stage times; the port's copy has no ``jax_trace``."""
+    ticks and stage times; the port's copy has ``torch_trace`` in place of
+    ``jax_trace``."""
     out = []
     for mod in (jprof, tprof):
         stats = mod.PipelineStats()
@@ -433,4 +438,4 @@ def test_profiling_matches_reference():
         stats.stage("map").ema_ms = 0.0
         out.append((stats.fps.rate_hz, stats.status_line(17), stats.snapshot(17)))
     assert out[0] == out[1]
-    assert not hasattr(tprof, "jax_trace")
+    assert hasattr(tprof, "torch_trace") and not hasattr(tprof, "jax_trace")

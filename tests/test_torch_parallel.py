@@ -1,17 +1,19 @@
 """The port's sharded tracking (``parallel/mesh.py``) against the JAX package's.
 
 The JAX side runs on the suite's virtual CPU devices under ``shard_map``;
-the port's on virtual CPU shards (``make_camera_mesh(2, "cpu")``). Both
+the port's on virtual CPU shards (``make_camera_mesh(n, "cpu")``, 2 and 4
+shards). Both
 start from one state (the reference's ``init_state``, sharded on each
 side) and take the same rendered ticks of the reference's flagship rig at
 128x96 with 64 slots a camera, with a keyframe gate tight enough that a
 tracked keyframe (inheritance across shards) comes within the 4 ticks.
 Each shard's RANSAC draws are the reference's
-(``uniform(fold_in(subkey, d), (Hl, n_local))``) injected into the port.
+(``uniform(fold_in(subkey, d), (H // n, n_local))``) injected into the port.
 
 Bars: inlier and match counts, keyframe decisions and the id counter
-equal, the pose to 1e-5, the same set of landmark ids; the port's sharded
-step within 0.02 m of its single-device step (the reference's bar).
+equal, the pose to 1e-5, the same set of landmark ids, fresh ids unique
+across shards; the port's sharded step within 0.02 m of its single-device
+step (the reference's bar).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ torch.set_num_threads(2)
 TICKS = 4
 N = 64
 CPU2 = tmesh.make_camera_mesh(2, "cpu")
+RUNS = {"cam": "cam_run", "slot": "slot_run", "cam4": "cam4_run", "slot4": "slot4_run"}
 
 
 def _t(a) -> torch.Tensor:
@@ -61,20 +64,23 @@ def _rig(num_cams: int):
     return params_j, setup_j, _params(params_j), setup_t, seq
 
 
-def _lockstep(num_cams: int, mode: str):
+def _lockstep(num_cams: int, mode: str, n_shards: int = 2):
     params_j, setup_j, params_t, setup_t, seq = _rig(num_cams)
-    mesh_j = jmesh.make_camera_mesh(2)
+    mesh_j = jmesh.make_camera_mesh(n_shards)
+    mesh_t = tmesh.make_camera_mesh(n_shards, "cpu")
     step_j = jmesh.make_sharded_track_step(params_j, setup_j, mesh_j, axis_mode=mode)
-    step_t = tmesh.make_sharded_track_step(params_t, setup_t, CPU2, axis_mode=mode)
+    step_t = tmesh.make_sharded_track_step(params_t, setup_t, mesh_t, axis_mode=mode)
     state0 = jtrk.init_state(params_j)
     state_j = jmesh.shard_state(state0, mesh_j, axis_mode=mode)
-    state_t = tmesh.shard_state(_port_state(state0), CPU2, axis_mode=mode)
-    hl = params_j.ransac_hypotheses // 2
-    n_local = num_cams * N // 2
+    state_t = tmesh.shard_state(_port_state(state0), mesh_t, axis_mode=mode)
+    hl = params_j.ransac_hypotheses // n_shards
+    n_local = num_cams * N // n_shards
     rows, first_ids = [], None
     for images in seq:
         _, subkey = jax.random.split(state_j.key)
-        uniforms = [_t(jax.random.uniform(jax.random.fold_in(subkey, d), (hl, n_local))) for d in range(2)]
+        uniforms = [
+            _t(jax.random.uniform(jax.random.fold_in(subkey, d), (hl, n_local))) for d in range(n_shards)
+        ]
         state_j, out_j = step_j(state_j, jnp.asarray(images))
         state_t, out_t = step_t(state_t, _t(images), uniforms=uniforms)
         rows.append((out_j, out_t))
@@ -91,6 +97,16 @@ def cam_run():
 @pytest.fixture(scope="module")
 def slot_run():
     return _lockstep(1, "slot")  # 1 stereo camera, 2 x 32 slots
+
+
+@pytest.fixture(scope="module")
+def cam4_run():
+    return _lockstep(4, "cam", 4)  # 4 stereo cameras, one a shard
+
+
+@pytest.fixture(scope="module")
+def slot4_run():
+    return _lockstep(1, "slot", 4)  # 1 stereo camera, 4 x 16 slots
 
 
 @pytest.mark.parametrize(
@@ -223,28 +239,33 @@ def _assert_lockstep(rows, state_j, state_t):
     assert int(rows[-1][1].num_inliers) >= 12
 
 
-def test_cam_sharded_step_matches_jax(cam_run):
-    rows, state_j, state_t, _ = cam_run
+@pytest.mark.parametrize("run", ["cam", "cam4"])
+def test_cam_sharded_step_matches_jax(run, request):
+    rows, state_j, state_t, _ = request.getfixturevalue(RUNS[run])
     _assert_lockstep(rows, state_j, state_t)
 
 
-def test_slot_sharded_step_matches_jax(slot_run):
-    rows, state_j, state_t, _ = slot_run
+@pytest.mark.parametrize("run", ["slot", "slot4"])
+def test_slot_sharded_step_matches_jax(run, request):
+    rows, state_j, state_t, _ = request.getfixturevalue(RUNS[run])
     _assert_lockstep(rows, state_j, state_t)
 
 
-@pytest.mark.parametrize("mode", ["cam", "slot"])
-def test_landmark_ids_unique_across_shards(mode, cam_run, slot_run):
+@pytest.mark.parametrize("mode", ["cam", "slot", "cam4", "slot4"])
+def test_landmark_ids_unique_across_shards(mode, request):
     """Fresh ids never collide across shards. In cam mode a camera
     inherits only its own landmarks, so its shard's ids stay its own; in
-    slot mode a slot may inherit a landmark of the other shard, so the
+    slot mode a slot may inherit a landmark of another shard, so the
     bootstrap keyframe (every id fresh) is where the ranges show."""
-    rows, _, state_t, (*_, first_ids) = cam_run if mode == "cam" else slot_run
-    ids = [s.lm_id[s.lm_valid].tolist() for s in state_t.shards] if mode == "cam" else first_ids
+    rows, _, state_t, (*_, first_ids) = request.getfixturevalue(RUNS[mode])
+    ids = [s.lm_id[s.lm_valid].tolist() for s in state_t.shards] if mode.startswith("cam") else first_ids
     # Within a shard two detections may inherit one landmark, as on one
     # device; across shards no id repeats.
-    a, b = set(ids[0]), set(ids[1])
-    assert a and b and not a & b, "a landmark id on both shards"
+    sets = [set(i) for i in ids]
+    assert len(sets) == state_t.mesh.size and all(sets), "a shard without landmarks"
+    for a in range(len(sets)):
+        for b in range(a + 1, len(sets)):
+            assert not sets[a] & sets[b], f"a landmark id on shards {a} and {b}"
     # The counter advanced by the global mint count at every keyframe.
     kfs = sum(bool(o.refreshed) for _, o in rows)
     assert int(state_t.lm_id_counter) == kfs * state_t.lm_id.numel()
@@ -261,17 +282,20 @@ def test_pose_prediction_accepted(slot_run):
     assert int(out.num_inliers) >= params.min_track_inliers
 
 
-@pytest.mark.parametrize("mode", ["cam", "slot"])
-def test_sharded_step_near_single_device(mode, cam_run, slot_run):
+@pytest.mark.parametrize("mode", ["cam", "slot", "cam4", "slot4"])
+def test_sharded_step_near_single_device(mode, request):
     """The distributed solver against the batched RANSAC of ``track_step``
     on the same frames: near, not equal (the reference's 0.02 m)."""
-    rows, _, _, (params, setup, seq, _) = cam_run if mode == "cam" else slot_run
+    rows, _, _, (params, setup, seq, _) = request.getfixturevalue(RUNS[mode])
     state = ttrk.init_state(params, "cpu")
     gen = torch.Generator().manual_seed(0)
-    for images in seq:
+    dists = []
+    for images, (_, out_sharded) in zip(seq, rows):
         state, out = ttrk.track_step(params, setup, state, _t(images), generator=gen)
-    d = np.linalg.norm(out.world_t_body.numpy()[:3, 3] - rows[-1][1].world_t_body.numpy()[:3, 3])
-    assert d < 0.02
+        pos = out.world_t_body.numpy()[:3, 3]
+        dists.append(float(np.linalg.norm(pos - out_sharded.world_t_body.numpy()[:3, 3])))
+    print(f"{mode}: largest sharded - single-device position difference {max(dists):.6f} m")
+    assert dists[-1] < 0.02
 
 
 def test_packed_returns(slot_run):

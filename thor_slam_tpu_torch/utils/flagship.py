@@ -5,14 +5,17 @@ port's own camera setup. The reference's deployed size is 640x400 with
 512 keypoints per camera (reference ``config/slam_config.yaml``).
 ``mono_yaws`` adds mono cameras to it (a mixed rig); :func:`mono_rig` is
 the all-mono rig of the reference's tests at any resolution.
+:func:`render_sequence` renders a rig's frames on the host or on a device.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from thor_slam_tpu_torch import geometry
 from thor_slam_tpu_torch.camera.rig import RigCalibration
+from thor_slam_tpu_torch.camera.sources import synthetic_torch
 from thor_slam_tpu_torch.camera.sources.synthetic import (
     OrbitTrajectory,
     SyntheticCameraSource,
@@ -116,3 +119,29 @@ def mono_rig(num_cams: int = 2, width: int = 640, height: int = 400):
         source_names=[s.name for s in sources],
     )
     return calibration, sources, traj
+
+
+def render_sequence(sources, num_frames: int, device=None):
+    """Render a (T, C, 2, H, W) float32 image sequence on host or device.
+
+    Port of :func:`thor_slam_tpu.utils.flagship.render_sequence`. With
+    ``device=None`` every image is the sources' numpy ``render`` (the
+    reference's host path, byte for byte) and the result a numpy array;
+    with a torch device (the reference's ``xp=jnp``) the ray casting runs
+    there, both eyes of a source in one batch
+    (:mod:`~thor_slam_tpu_torch.camera.sources.synthetic_torch`), and the
+    result is a tensor on it.
+    """
+    frames = []
+    for t_idx in range(num_frames):
+        cams = []
+        for src in sources:
+            t = src.frame_time(t_idx)
+            poses = [src.world_t_optical(t, ci) for ci in range(2)]
+            intrinsics = src.get_intrinsics()[0]
+            if device is None:
+                cams.append(np.stack([src._world.render(intrinsics, pose) for pose in poses]))
+            else:
+                cams.append(synthetic_torch.render(src._world, intrinsics, np.stack(poses), device))
+        frames.append(np.stack(cams) if device is None else torch.stack(cams))
+    return np.stack(frames) if device is None else torch.stack(frames)

@@ -1,13 +1,15 @@
-"""Observability: rate counters, stage timers, status lines.
+"""Observability: rate counters, stage timers, status lines, profiler hooks.
 
-A copy of :mod:`thor_slam_tpu.utils.profiling` without ``jax_trace`` (the
-JAX profiler hook has no counterpart in the port yet): the operator status
-line, per-stage EMA timers and structured snapshots.
+A copy of :mod:`thor_slam_tpu.utils.profiling` (the operator status line,
+per-stage EMA timers and structured snapshots) whose profiler hook is
+:func:`torch_trace`, the counterpart of the reference's ``jax_trace``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -87,3 +89,93 @@ class PipelineStats:
             "sync_max_dt_ms": round(self.max_time_delta_ms, 2),
             "stages_ms": {n: round(t.ema_ms, 2) for n, t in self.stages.items()},
         }
+
+
+#: Host-side runtime calls that launch work on the device (one per kernel
+#: launch; a graph launch counts once).
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch")
+#: The port's hand-written kernels, by the name their counts go by.
+KERNELS = ("patch_gather", "fast9_nms", "sgm_scan", "sgm_winner_lr")
+_trace_ids = itertools.count()
+
+
+def _count_tables() -> dict:
+    from thor_slam_tpu_torch.ops import fast_cuda, patches_cuda, sgm_cuda
+
+    return {"patch_gather": (patches_cuda.counts, patches_cuda.reset_counts),
+            "fast9_nms": (fast_cuda.counts, fast_cuda.reset_counts),
+            **{name: (c, sgm_cuda.reset_counts) for name, c in sgm_cuda.counts.items()}}
+
+
+def kernel_counts(names=KERNELS) -> dict:
+    """Launches of the port's hand-written kernels (``kernel``) and calls of
+    their plain versions (``plain``, CPU tensors) so far, for each of
+    ``names``."""
+    tables = _count_tables()
+    return {name: dict(tables[name][0]) for name in names}
+
+
+def counts_since(before: dict) -> dict:
+    """:func:`kernel_counts` of the same kernels minus an earlier snapshot."""
+    now = kernel_counts(tuple(before))
+    return {k: {r: now[k][r] - before[k][r] for r in ("kernel", "plain")} for k in now}
+
+
+def reset_kernel_counts(names=KERNELS) -> None:
+    """Set the counts of ``names`` to 0 (the two SGM kernels share one reset)."""
+    tables = _count_tables()
+    for reset in {tables[name][1] for name in names}:
+        reset()
+
+
+@dataclass
+class TraceWindow:
+    """What :func:`torch_trace` read from its window, filled on exit.
+
+    ``launches`` counts the host's kernel-launch calls (:data:`LAUNCH_CALLS`),
+    ``device_ms`` sums the durations of the CUDA kernels (copies, memsets
+    and named ranges left out; kernels that overlap count twice), ``path``
+    is the Chrome trace written into the log directory.
+    """
+
+    launches: int = 0
+    device_ms: float = 0.0
+    path: str | None = None
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str, cuda: bool | None = None):
+    """Capture a torch.profiler trace (CPU and CUDA activities) around a block.
+
+    Port of the reference's ``jax_trace``. Yields a :class:`TraceWindow`;
+    on exit every visible device is synchronized, the trace is written as
+    Chrome JSON into ``log_dir`` (open it in Perfetto or chrome://tracing)
+    and the window's launches and device-busy ms are filled in. ``cuda``
+    (default: whether a CUDA device is visible) adds the CUDA activity;
+    without it the window reports 0 device ms.
+    """
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.cuda.is_available() if cuda is None else cuda
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    window = TraceWindow()
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        try:
+            yield window
+        finally:
+            if cuda:  # the traced work may run on any device
+                for index in range(torch.cuda.device_count()):
+                    torch.cuda.synchronize(index)
+    events = list(prof.events())
+    window.launches = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS)
+    kernels = [
+        e for e in events
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith(("Memcpy", "Memset"))
+    ]
+    window.device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    window.path = os.path.join(log_dir, f"trace_{os.getpid()}_{next(_trace_ids)}.json")
+    prof.export_chrome_trace(window.path)
