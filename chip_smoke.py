@@ -13,7 +13,8 @@ phase under torch.profiler and times unprofiled ticks, and stops: copied
 into a ``git archive`` of a parent it gives both trees' tables in one
 call. With ``--engine-only`` it builds the kernels and runs phase 5
 alone, printing every BA solve's outcome by tick: copied into a parent's
-tree it shows which gate an outcome of that phase turned on. It
+tree it shows which gate an outcome of that phase turned on. With
+``--bench-only`` it builds the kernels and runs phase 13 alone. It
 
 0. requires a CUDA device, prints the card's name and power limit and pins
    full-f32 precision;
@@ -168,6 +169,21 @@ tree it shows which gate an outcome of that phase turned on. It
    rehearsal: ``run_measure(cpu, 4, shapes=(("160x100", "1", ()),),
    ablate_res="128x96", reps=2, ticks=3, render_cams=2, render_res=(128,
    96), kernels=False)`` (~1 min).
+13. the benchmark (``bench:`` lines) at its flagship, 4 stereo cameras at
+   1280x720 with 256 slots a camera. First the slice there: 40 frames
+   rendered on the card and brought to the host as uint8, as the benchmark
+   renders its host frames; both kernels against their plain versions on
+   them; the synchronous engine over the 40 ticks (TRACKING by tick 3 and
+   on >= 90 % after, ATE < 5 cm, the gather and FAST identities). Then
+   ``python -m thor_slam_tpu_torch.bench`` at its defaults in a subprocess,
+   its ``BENCH_BUDGET_S`` the time this run has left less a margin
+   (CHIP_LIMIT_S, BENCH_MARGIN_S): prints its log and its JSON line, and
+   asserts exit code 0, every key non-null, no phase skipped, the card's
+   name and power limit as its ``device``, both inlier counts at least
+   BENCH_MIN_INLIERS, and that it launched every kernel and no plain
+   version (the launches it logs count in the kernels' record). CPU
+   rehearsal of the slice: ``run_bench_slice(cpu, res=(320, 180),
+   ticks=12, kernels=False)``.
 
 Every phase's frames are rendered ahead by a pool of worker processes (a
 frame is a deterministic function of its index), which are idle while ticks
@@ -375,6 +391,25 @@ MIN_RENDER_U8_EQUAL = 0.999
 # --tick-launches: ticks under the profiler, then unprofiled ticks.
 PROFILE_TICKS = 28  # the slice refreshes about every 13th tick: two keyframes
 TIMED_TICKS = 30
+# Phase 13: the benchmark's flagship, 4 stereo cameras at 1280x720 with 256
+# slots a camera (bench.py's defaults), first as the slice (the synchronous
+# engine, PR6_MODES, over BENCH_TICKS frames rendered on the card, held to
+# the slice's bars), then `python -m thor_slam_tpu_torch.bench` at its
+# defaults in a subprocess, given the time the run has left (CHIP_LIMIT_S
+# less what has passed and BENCH_MARGIN_S for what follows it) as its
+# BENCH_BUDGET_S. Both inlier counts of its line (the last tick of the
+# device loop and of the 720p streaming row) must reach BENCH_MIN_INLIERS
+# of the 4 x 256 slots; the reference's own last line had 139 and 227. The
+# counts are deterministic on the card (seeded draws, no controller in
+# either row) but sample the bank between refreshes (a refresh when
+# inliers drop under keyframe_min_inliers = 50): a change that moves them
+# moves where the sample falls, so read the change before the bar.
+BENCH_RES = (1280, 720)
+BENCH_KEYPOINTS = 256
+BENCH_TICKS = 40
+BENCH_MIN_INLIERS = 100
+CHIP_LIMIT_S = 1200.0
+BENCH_MARGIN_S = 60.0
 
 
 def nvidia_smi_line() -> str:
@@ -479,13 +514,16 @@ def check_patch_gather(patches_cuda, dev) -> dict:
     # (shape, S, M, mono cameras): the slice's three (both KLT levels and
     # BRIEF), the same three of the mixed rig (a fifth, mono camera) and of
     # the all-mono rig (two mono cameras), then M = 1, M a multiple of no
-    # block's patch count, a patch as large as the image, a generic size.
+    # block's patch count, a patch as large as the image, a generic size;
+    # last the benchmark's flagship (4 x 1280x720, 256 slots a camera): both
+    # KLT levels and BRIEF.
     # A mono camera's images in the second stack are zero, as its right eye
     # is when BRIEF gathers both eyes.
     cases = [((4, 400, 640), 19, 2048, 0), ((4, 200, 320), 19, 2048, 0), ((4, 400, 640), 37, 2048, 0),
              ((5, 400, 640), 19, 2560, 1), ((5, 200, 320), 19, 2560, 1), ((5, 400, 640), 37, 2560, 1),
              ((2, 400, 640), 19, 1024, 2), ((2, 200, 320), 19, 1024, 2), ((2, 400, 640), 37, 1024, 2),
-             ((3, 41, 37), 9, 1, 0), ((3, 41, 37), 19, 13, 0), ((2, 37, 53), 37, 7, 0), ((1, 64, 48), 5, 1001, 0)]
+             ((3, 41, 37), 9, 1, 0), ((3, 41, 37), 19, 13, 0), ((2, 37, 53), 37, 7, 0), ((1, 64, 48), 5, 1001, 0),
+             ((4, 720, 1280), 19, 1024, 0), ((4, 360, 640), 19, 1024, 0), ((4, 720, 1280), 37, 1024, 0)]
     for shape, size, m, mono in cases:
         c, h, w = shape
         stacks, cam, centers = _gather_inputs(gen, shape, m, dev)
@@ -2813,6 +2851,117 @@ def run_measure(dev, scan_launches: int, shapes=MEASURE_SHAPES, ablate_res=MEASU
     return total
 
 
+def run_bench_slice(dev, res=BENCH_RES, ticks=BENCH_TICKS, kernels: bool = True) -> dict:
+    """Phase 13's first half (``bench:`` lines): the slice at the
+    benchmark's flagship, 4 stereo cameras at ``res`` with BENCH_KEYPOINTS
+    slots a camera. The frames are rendered on ``dev``, converted to uint8
+    on the host as the benchmark does and handed to the engine as the
+    benchmark's sync factory builds them; both kernels are first held to
+    their plain versions on them. The synchronous engine (PR6_MODES) over
+    ``ticks`` ticks: TRACKING by tick 3 and on >= 90 % of the ticks after,
+    ATE < 5 cm, the gather and FAST launch identities and no plain call.
+    Returns the launches. (``kernels=False`` with a small ``res`` and
+    ``ticks`` rehearses it on the CPU with the plain versions.)"""
+    from thor_slam_tpu_torch import bench
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+    from thor_slam_tpu_torch.slam.interface import SlamConfig
+    from thor_slam_tpu_torch.utils.evaluation import ate_rmse
+    from thor_slam_tpu_torch.utils.flagship import flagship_rig
+
+    width, height = res
+    params, _, calibration, _, _, traj = flagship_rig(4, width, height, BENCH_KEYPOINTS)
+    t0 = time.perf_counter()
+    host_seq = bench._render_host_frames(4, width, height, ticks, dev)
+    make_sync = bench._make_sync_factory(calibration, host_seq, ticks, 30.0, False)
+    frames = [make_sync(i) for i in range(ticks)]
+    print(f"bench: rendered {ticks} frame sets (4 x 2 x {width}x{height}) on the device in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_on_rig_frames(dev, "bench", frames, calibration, BENCH_KEYPOINTS, kernels=kernels)
+    config = SlamConfig(num_cameras=8, enable_loop_closure=False)
+    overrides = dict(max_keypoints=BENCH_KEYPOINTS)
+    warm = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **PR6_MODES)
+    warm.initialize(calibration, config)
+    for fs in frames[:WARMUP_TICKS]:
+        warm.process_frames(fs)
+    warm.shutdown()
+    engine = TorchSlamEngine(params=overrides, device=dev, seed=SEED, **PR6_MODES)
+    engine.initialize(calibration, config)
+    r = _drive(engine, frames, traj, dev)
+    engine.shutdown()
+    ate = ate_rmse(r["est"], r["gt"])
+    kf_ms = [t for t, e in zip(r["tick_ms"], r["log"]) if e["diag"]["refreshed"]]
+    print(
+        f"bench: slice at 4x{width}x{height}, {BENCH_KEYPOINTS} slots: {ticks} ticks, median ms/tick "
+        f"{statistics.median(r['tick_ms']):.3f} | keyframe {statistics.median(kf_ms) if kf_ms else float('nan'):.3f} "
+        f"(n={r['keyframes']}) | first tick {r['tick_ms'][0]:.1f}; ATE {ate * 100:.3f} cm, TRACKING from tick "
+        f"{r['first_tracking']}, held {r['held']:.0%}, inliers at the last tick "
+        f"{r['log'][-1]['diag']['num_inliers']}; launches {json.dumps(r['counts'])}"
+    )
+    failures = []
+    if r["first_tracking"] is None or r["first_tracking"] > 3:
+        failures.append(f"not TRACKING by tick 3 (first at {r['first_tracking']})")
+    elif r["held"] < 0.9:
+        failures.append(f"TRACKING held on only {r['held']:.0%} of ticks after tick {r['first_tracking']}")
+    if not ate < 0.05:
+        failures.append(f"ATE {ate:.4f} m >= 0.05 m")
+    launches = _check_counts("bench", r, params.klt_levels, failures, kernels)
+    if failures:
+        raise AssertionError("bench slice: " + "; ".join(failures))
+    return launches
+
+
+def run_bench_cli(budget_s: float, device_line: str) -> dict:
+    """Phase 13's second half: ``python -m thor_slam_tpu_torch.bench`` at
+    its defaults in a subprocess with ``BENCH_BUDGET_S=budget_s``. Prints
+    its log and its JSON line (``bench: {...}``); asserts exit code 0, every
+    key non-null, no phase skipped, ``device`` the card's nvidia-smi line and
+    both inlier counts at least BENCH_MIN_INLIERS; returns the launches of
+    the port's kernels it logged, which must all be kernels, none of a
+    plain version, every kernel launched."""
+    env = dict(os.environ, BENCH_BUDGET_S=str(int(budget_s)))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "thor_slam_tpu_torch.bench"], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=budget_s + 120)
+    took = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        print(line if line.startswith("bench: ") else f"bench: | {line}")
+    lines = proc.stdout.strip().splitlines()
+    print(f"bench: {lines[-1] if lines else '(no result line)'}")
+    print(f"bench: the command took {took:.1f} s (BENCH_BUDGET_S={int(budget_s)}), exit code {proc.returncode}")
+    result = json.loads(lines[-1]) if lines else {}
+    launched = [json.loads(line.split("kernel launches ", 1)[1])
+                for line in proc.stderr.splitlines() if line.startswith("bench: kernel launches ")]
+    failures = []
+    if proc.returncode != 0:
+        failures.append(f"exit code {proc.returncode}")
+    if not result or any(v is None for v in result.values()):
+        failures.append(f"null keys {[k for k, v in result.items() if v is None] or 'all'}")
+    if result.get("phases_skipped") != []:
+        failures.append(f"phases skipped {result.get('phases_skipped')}")
+    if result.get("device") != device_line:
+        failures.append(f"device {result.get('device')!r}, not {device_line!r}")
+    for key in ("num_inliers_last", "num_inliers_scan_last"):
+        if not (result.get(key) or 0) >= BENCH_MIN_INLIERS:
+            failures.append(f"{key} {result.get(key)} < {BENCH_MIN_INLIERS}")
+    counts = launched[-1] if launched else {}
+    if set(counts) != set(kernel_counts()) or any(c["plain"] or not c["kernel"] for c in counts.values()):
+        failures.append(f"kernel launches {counts}")
+    if failures:
+        raise AssertionError("bench: " + "; ".join(failures))
+    return {name: c["kernel"] for name, c in counts.items()}
+
+
+def run_bench_phase(dev, t_start: float) -> dict:
+    """Phase 13: the slice at the benchmark's flagship, then the benchmark
+    with the time the run has left; returns the launches of both."""
+    launches = run_bench_slice(dev)
+    torch.cuda.empty_cache()
+    budget = CHIP_LIMIT_S - (time.perf_counter() - t_start) - BENCH_MARGIN_S
+    for name, n in run_bench_cli(budget, nvidia_smi_line()).items():
+        launches[name] = launches.get(name, 0) + n
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2840,6 +2989,10 @@ def main() -> int:
     if "--tick-launches" in sys.argv[1:]:
         # The launch table alone (see the module docstring): no result line.
         print(json.dumps({"tick_launches": tick_launches(dev)}))
+        return 0
+    if "--bench-only" in sys.argv[1:]:
+        # Phase 13 alone (see the module docstring): no result line.
+        print(f"bench: phase launches {json.dumps(run_bench_phase(dev, t_start))}")
         return 0
     if "--engine-only" in sys.argv[1:]:
         # The full-engine phase alone (see the module docstring): no result line.
@@ -2951,6 +3104,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phases["measure"] = run_measure(dev, scan["launches_per_call"])
     print(f"measure: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['measure'])}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phases["bench"] = run_bench_phase(dev, t_start)
+    print(f"bench: phase took {time.perf_counter() - t0:.1f} s, launches {json.dumps(phases['bench'])}")
     for counts in phases.values():
         for name, n in counts.items():
             launches[name] += n

@@ -2,17 +2,24 @@
 
 ``thor_slam_tpu_torch.slam.adapters`` (``NullSlamEngine``, the wire
 helpers of ``external_ros``, the cloud packers of ``ros_bridge``) and the
-scripts ``publish_odom_tf`` and ``find_cameras`` are copies of the
+scripts ``publish_odom_tf``, ``find_cameras`` and ``set_ip`` are copies of the
 reference's numpy code: each is held to the original on the same inputs,
 byte for byte where it packs bytes. The ROS shells themselves need rclpy
 (absent here, as on the card's machine) and are driven through fakes in
-``tests/test_torch_runners.py``.
+``tests/test_torch_runners.py``. The port's ROS launch file
+(``thor_slam_tpu_torch/launch/``) is read with ``ast`` (``launch_ros`` is
+absent): it starts the port's modules with the reference launch file's
+arguments and names its topics.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
+import importlib.util
 import io
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -214,11 +221,14 @@ def test_map_t_odom_from_pose_matches_reference(seed):
     np.testing.assert_array_equal(ttf.map_t_odom_from_pose(pose), jtf.map_t_odom_from_pose(pose))
 
 
-@pytest.mark.parametrize("script", ["publish_odom_tf", "find_cameras"])
-def test_hardware_scripts_without_their_sdk_match_reference(script):
+@pytest.mark.parametrize("script", ["publish_odom_tf", "find_cameras", "set_ip"])
+def test_hardware_scripts_without_their_sdk_match_reference(script, monkeypatch):
     """Without rclpy / depthai both packages' scripts say so and return 1."""
     import importlib
+    import sys
 
+    if script == "set_ip":  # its main parses sys.argv
+        monkeypatch.setattr(sys, "argv", ["set_ip", "192.168.2.21", "--dynamic"])
     out = []
     for name in (f"scripts.{script}", f"thor_slam_tpu_torch.scripts.{script}"):
         buf = io.StringIO()
@@ -227,3 +237,43 @@ def test_hardware_scripts_without_their_sdk_match_reference(script):
         out.append((rc, buf.getvalue()))
     assert out[0] == out[1]
     assert out[0][0] == 1
+
+
+LAUNCH_FILES = {
+    "reference": Path(__file__).resolve().parents[1] / "launch" / "thor_slam_tpu.launch.py",
+    "port": Path(__file__).resolve().parents[1] / "thor_slam_tpu_torch" / "launch" / "thor_slam_tpu_torch.launch.py",
+}
+
+
+def _launch_processes(path: Path) -> list[list[str]]:
+    """The ``cmd`` of every ``ExecuteProcess`` in a launch file, a name
+    bound at run time as ``<name>``."""
+    cmds = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "ExecuteProcess":
+            cmd = next(k.value for k in node.keywords if k.arg == "cmd")
+            cmds.append([e.value if isinstance(e, ast.Constant) else f"<{e.id}>" for e in cmd.elts])
+    return cmds
+
+
+def test_launch_file_starts_the_ports_modules_with_the_reference_arguments():
+    ref, port = (_launch_processes(LAUNCH_FILES[k]) for k in ("reference", "port"))
+    assert len(port) == len(ref) == 2
+    for got, want in zip(port, ref):
+        at = got.index("-m")
+        module = got[at + 1]
+        assert module == "thor_slam_tpu_torch." + want[at + 1]
+        assert importlib.util.find_spec(module) is not None, module
+        assert got[:at + 1] + got[at + 2:] == want[:at + 1] + want[at + 2:]
+
+
+def test_launch_file_topics_match_the_reference():
+    def topics(path):
+        return set(re.findall(r"``(/[\w/]+)``", path.read_text()))
+
+    want = topics(LAUNCH_FILES["reference"])
+    assert want and topics(LAUNCH_FILES["port"]) == want
+    # The processes it starts use them: the bridge publishes, the TF node subscribes.
+    for module in ("slam.adapters.ros_bridge", "scripts.publish_odom_tf"):
+        source = importlib.util.find_spec(f"thor_slam_tpu_torch.{module}").origin
+        assert all(f'"{t}"' in Path(source).read_text() for t in want), module

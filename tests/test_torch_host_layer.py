@@ -292,8 +292,9 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     """A fresh interpreter imports every module of the port and
     ``chip_smoke`` (the two-view bootstrap's, the mapper's, the runners',
     the sources', the ROS adapters', the multi-device ``parallel/``
-    package's, the measurement scripts', the device renderer's and the
-    demos' in ``examples/`` among them); neither JAX, any
+    package's, the measurement scripts', the device renderer's, the
+    demos' in ``examples/``, the benchmark's and ``set_ip``'s among them);
+    neither JAX, any
     ``thor_slam_tpu`` module, pyyaml, cv2, depthai nor rclpy loads."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -312,7 +313,8 @@ def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
         "             'parallel', 'parallel.mesh', 'parallel.dryrun', 'scripts.profile_stages',\n"
         "             'scripts.ablate_step', 'utils.flagship', 'utils.profiling', 'camera.sources.synthetic_torch',\n"
         "             'examples', 'examples.pull_extrinsics', 'examples.rgbd_stream', 'examples.test_camera_driver',\n"
-        "             'examples.test_camera_rig', 'examples.test_imu', 'examples.test_stream_resolutions'):\n"
+        "             'examples.test_camera_rig', 'examples.test_imu', 'examples.test_stream_resolutions',\n"
+        "             'bench', 'scripts.set_ip'):\n"
         "    assert 'thor_slam_tpu_torch.' + name in mods, mods\n"
         "print(len(mods))\n"
     )
@@ -333,7 +335,10 @@ COPIED_CODE = {
     "slam.adapters.external_ros": ["extract_cameras", "split_stamp", "image_wire", "distortion_wire",
                                    "projection_matrix", "camera_tf_list", "latest_imu_sample", "ExternalRosEngine"],
     "slam.adapters.ros_bridge": ["pack_xyz_cloud", "pack_xyzrgb_cloud"],
+    "scripts.set_ip": ["main"],
 }
+#: Originals that live outside the JAX package (the root ``scripts/``).
+REFERENCE_MODULE = {"scripts.set_ip": "scripts.set_ip"}
 
 
 @pytest.mark.parametrize("module,name", [(m, n) for m, names in COPIED_CODE.items() for n in names])
@@ -341,7 +346,8 @@ def test_copied_code_is_the_reference_code(module, name):
     import importlib
     import inspect
 
-    want = inspect.getsource(getattr(importlib.import_module(f"thor_slam_tpu.{module}"), name))
+    reference = REFERENCE_MODULE.get(module, f"thor_slam_tpu.{module}")
+    want = inspect.getsource(getattr(importlib.import_module(reference), name))
     got = inspect.getsource(getattr(importlib.import_module(f"thor_slam_tpu_torch.{module}"), name))
     assert got == want.replace("thor_slam_tpu.", "thor_slam_tpu_torch.")
 
