@@ -1,0 +1,14 @@
+"""pnp_host_ms (ms): mean host milliseconds per window tick in the
+program's ``tracker.pnp`` span (``pnp.ransac_pnp`` in ``track_step``), over
+the untraced ticks of a traced run.
+
+Importing this reader turns the program's tracer on; only a traced run
+imports it (``benchmark.core.program_spans``)."""
+
+from benchmark.core import program_spans
+
+program_spans.turn_on()
+
+
+def read(run):
+    return program_spans.mean([t.ms("tracker.pnp") for t in program_spans.window_ticks(run)])

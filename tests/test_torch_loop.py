@@ -205,9 +205,9 @@ def loop_run():
     calls = []
     hook = engine._loop.on_keyframe
 
-    def record(world_t_body, ts, sig, map_t_odom, frame_count):
+    def record(world_t_body, ts, sig, map_t_odom, frame_count, **kw):
         calls.append((np.linalg.inv(map_t_odom) @ world_t_body, ts, sig, frame_count))
-        return hook(world_t_body, ts, sig, map_t_odom, frame_count)
+        return hook(world_t_body, ts, sig, map_t_odom, frame_count, **kw)
 
     engine._loop.on_keyframe = record
     est, world, gt = [], [], []

@@ -1,0 +1,306 @@
+"""The port's in-process tracer (``utils/profiling``: ``span``, ``tracing``,
+``spans``) and the spans the engine, the tracker and the backends record.
+
+* Off, a span is the shared null context and records nothing.
+* On, spans nest per thread with their parents and ticks, the ring drops
+  its oldest spans and counts them, and under ``torch.profiler`` each span
+  is a ``thor/<name>`` range of the trace.
+* The sync-debug warning is counted on the innermost open span, and turning
+  the tracer off restores the warning machinery (and, on a card, the mode).
+* Through the engine (synchronous, pipelined at depth 1 and 6): one
+  ``engine.dispatch`` per call, every dispatched tick fetched and finalized
+  once, one ``tracker.keyframe`` per keyframe tick, BA spans with their skip
+  reasons; and the engine's outputs are bit for bit those of an untraced run.
+
+This file imports no JAX: on a card, ``python -m pytest
+tests/test_torch_tracing.py --noconftest -m cuda`` runs the card's case.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import warnings
+from collections import Counter, deque
+
+import numpy as np
+import pytest
+import torch
+
+from thor_slam_tpu_torch.camera.rig import CameraRig
+from thor_slam_tpu_torch.camera.sources.synthetic import (
+    OrbitTrajectory,
+    SyntheticRigSpec,
+    SyntheticWorld,
+    make_synthetic_rig,
+)
+from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+from thor_slam_tpu_torch.slam.interface import SlamConfig
+from thor_slam_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+
+TICKS = 30
+
+
+@pytest.fixture
+def tracer():
+    """The tracer on over an empty ring; off and empty again afterwards."""
+    profiling.tracing(False)
+    profiling.clear()
+    profiling.tracing(True)
+    try:
+        yield profiling
+    finally:
+        profiling.tracing(False)
+        profiling.clear()
+
+
+def _by_name(spans):
+    return {s.name: s for s in spans}
+
+
+# ------------------------------------------------------------ the tracer
+
+
+def test_off_is_the_shared_null_context():
+    was = profiling._tracer.on  # another test module may have turned it on
+    profiling.tracing(False)
+    profiling.clear()
+    try:
+        first, second = profiling.span("a"), profiling.span("b", kind="wait", tick=3, x=1)
+        assert first is second
+        with first as entered:
+            assert entered is None
+            profiling.annotate(y=2)
+        assert profiling.spans() == [] and profiling.dropped() == 0
+    finally:
+        profiling.tracing(was)
+
+
+def test_nesting_parents_ticks_and_threads(tracer):
+    with tracer.span("root", tick=7, frame_ts=1.5) as root:
+        tracer.annotate(light=True)
+        with tracer.span("child") as child:
+            with tracer.span("leaf", kind="wait"):
+                pass
+        with tracer.span("other", tick=3):
+            pass
+    seen = {}
+
+    def worker():
+        with tracer.span("thread_root", tick=11):
+            with tracer.span("thread_child"):
+                seen["thread"] = threading.get_ident()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive()
+    s = _by_name(tracer.spans())
+    assert [x.name for x in tracer.spans()] == ["leaf", "child", "other", "root", "thread_child", "thread_root"]
+    assert s["root"] is root and s["child"] is child
+    assert s["root"].parent is None and s["root"].tick == 7
+    assert s["root"].attrs == {"frame_ts": 1.5, "light": True}
+    assert s["child"].parent == root.index and s["child"].tick == 7 and s["child"].kind == "work"
+    assert s["leaf"].parent == child.index and s["leaf"].tick == 7 and s["leaf"].kind == "wait"
+    assert s["other"].parent == root.index and s["other"].tick == 3
+    assert root.t0 <= child.t0 <= s["leaf"].t0 <= s["leaf"].t1 <= child.t1 <= root.t1
+    assert {x.thread for x in (s["root"], s["child"], s["leaf"])} == {threading.get_ident()}
+    assert s["thread_root"].parent is None and s["thread_child"].parent == s["thread_root"].index
+    assert s["thread_child"].tick == 11 and s["thread_child"].thread == seen["thread"] != threading.get_ident()
+
+
+def test_the_ring_drops_the_oldest_and_counts_them(tracer, monkeypatch):
+    monkeypatch.setattr(tracer._tracer, "ring", deque(maxlen=3))
+    for i in range(5):
+        with tracer.span(f"s{i}"):
+            pass
+    assert [x.name for x in tracer.spans()] == ["s2", "s3", "s4"]
+    assert tracer.dropped() == 2
+    tracer.clear()
+    assert tracer.spans() == [] and tracer.dropped() == 0
+
+
+def test_spans_are_profiler_ranges(tracer, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    with tracer.span("outside"):  # no profiler: no range
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tracer.span("engine.dispatch"):
+            with tracer.span("tracker.pnp"):
+                torch.ones(8).sum()
+    names = [e.name for e in prof.events()]
+    assert "thor/engine.dispatch" in names and "thor/tracker.pnp" in names and "thor/outside" not in names
+    with profiling.torch_trace(str(tmp_path), cuda=False) as window:
+        with tracer.span("tracker.keyframe"):
+            torch.ones(8).sum()
+    events = json.loads(open(window.path).read())["traceEvents"]
+    assert any(e.get("name") == "thor/tracker.keyframe" for e in events)
+    assert [x.name for x in tracer.spans()] == ["outside", "tracker.pnp", "engine.dispatch", "tracker.keyframe"]
+
+
+# ------------------------------------------------------ the sync counter
+
+
+def test_sync_warnings_count_on_the_innermost_span_and_are_restored():
+    profiling.tracing(False)
+    filters, shown = list(warnings.filters), warnings.showwarning
+    profiling.clear()
+    profiling.tracing(True)
+    try:
+        with profiling.span("outer"):
+            warnings.warn(profiling.SYNC_WARNING)
+            with profiling.span("inner"):
+                for _ in range(3):  # one line, three calls: each counts
+                    warnings.warn(f"{profiling.SYNC_WARNING} (Triggered internally)")
+        warnings.warn(profiling.SYNC_WARNING)  # outside every span: neither counted nor shown
+        with pytest.warns(UserWarning, match="another warning"):
+            warnings.warn("another warning")  # other warnings are still shown
+        s = _by_name(profiling.spans())
+        assert (s["outer"].syncs, s["inner"].syncs) == (1, 3) and len(s) == 2
+    finally:
+        profiling.tracing(False)
+        profiling.clear()
+    assert warnings.filters == filters and warnings.showwarning is shown
+    with pytest.warns(UserWarning, match=profiling.SYNC_WARNING):  # shown again once off
+        warnings.warn(profiling.SYNC_WARNING)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+def test_a_blocking_copy_counts_one_sync_on_the_card(cuda_device):
+    profiling.tracing(False)
+    mode = torch.cuda.get_sync_debug_mode()
+    x = torch.ones(4, device=cuda_device)
+    torch.cuda.synchronize()
+    profiling.clear()
+    profiling.tracing(True)
+    try:
+        assert torch.cuda.get_sync_debug_mode() != mode
+        with profiling.span("copy"):
+            torch.tensor([1.0, 2.0, 3.0], device=cuda_device)
+        with profiling.span("async"):
+            (x * 2).add_(1)  # no host wait
+        s = _by_name(profiling.spans())
+        assert (s["copy"].syncs, s["async"].syncs) == (1, 0)
+    finally:
+        profiling.tracing(False)
+        profiling.clear()
+    assert torch.cuda.get_sync_debug_mode() == mode
+
+
+# ------------------------------------------------------------ the engine
+
+
+@pytest.fixture(scope="module")
+def frames():
+    traj = OrbitTrajectory(radius=1.5, angular_rate=0.5)
+    spec = SyntheticRigSpec(num_sources=2, stereo=True, width=160, height=120, fps=30.0, baseline_m=0.12)
+    sources, rig_ext, _, _ = make_synthetic_rig(spec, world=SyntheticWorld(half_extents=(4.0, 4.0, 2.0)),
+                                                trajectory=traj)
+    with CameraRig(sources, rig_extrinsics=rig_ext, imu_source=sources[0].name) as r:
+        return r.calibration, [r.get_synchronized_frames() for _ in range(TICKS)]
+
+
+def _run(frames, **kwargs):
+    """The engine over the frames: every finalized record's tick and
+    diagnostics, the poses returned, the upload counters."""
+    calibration, sets = frames
+    engine = TorchSlamEngine(params=dict(max_keypoints=256, keyframe_min_inliers=40), device="cpu",
+                             adaptive_half_res=False, **kwargs)
+    engine.initialize(calibration, SlamConfig(num_cameras=4))
+    finalized = []
+    finalize = engine._finalize_values
+
+    def logged(rec):
+        pose = finalize(rec)
+        finalized.append((rec["tick"], dict(engine.last_diagnostics)))
+        return pose
+
+    engine._finalize_values = logged
+    poses = [engine.process_frames(fs) for fs in sets] + [engine.flush()]
+    out = dict(poses=[None if p is None else (p.to_4x4_matrix(), p.covariance, p.confidence) for p in poses],
+               finalized=finalized, upload_stats=dict(engine.upload_stats), map_t_odom=engine.map_t_odom)
+    engine.shutdown()
+    return out
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(pipelined=True, pipeline_depth=1),
+                                  dict(pipelined=True, pipeline_depth=6)], ids=["sync", "depth1", "depth6"])
+def test_engine_spans(frames, tracer, mode):
+    out = _run(frames, **mode)
+    spans = tracer.spans()
+    by_index = {s.index: s for s in spans}
+    roots = [s for s in spans if s.name == "engine.process_frames"]
+    assert [r.tick for r in roots] == list(range(TICKS)) and all(r.parent is None for r in roots)
+    assert all({"frame_ts", "light", "half"} <= set(r.attrs) for r in roots)
+
+    def root_of(s):
+        while s.parent is not None:
+            s = by_index[s.parent]
+        return s
+
+    dispatch = [s for s in spans if s.name == "engine.dispatch"]
+    assert Counter(root_of(s).index for s in dispatch) == Counter(r.index for r in roots)  # one a call
+    assert all(s.tick == root_of(s).tick for s in dispatch)
+    # Every dispatched tick is fetched once and finalized once, in order.
+    fetched = [s.tick for s in spans if s.name == "engine.fetch_wait"]
+    assert sorted(fetched) == list(range(TICKS)) and [t for t, _ in out["finalized"]] == list(range(TICKS))
+    assert all(s.kind == "wait" for s in spans if s.name in ("engine.fetch_wait", "engine.upload_wait",
+                                                            "tracker.refresh_readback"))
+    if mode.get("pipelined"):
+        assert Counter(root_of(s).name for s in spans if s.name == "engine.upload_wait")["engine.process_frames"] >= TICKS
+    # One keyframe front end in each keyframe tick's dispatch, none elsewhere.
+    keyframes = {t for t, d in out["finalized"] if d["refreshed"]}
+    kf_spans = Counter(s.tick for s in spans if s.name == "tracker.keyframe")
+    assert len(keyframes) >= 3 and kf_spans == Counter(keyframes)
+    assert all(root_of(s).name == "engine.process_frames" and by_index[s.parent].name == "engine.dispatch"
+               for s in spans if s.name == "tracker.pnp")
+    assert Counter(s.tick for s in spans if s.name == "tracker.pnp") == Counter(range(TICKS))
+    # BA: one span per tracked keyframe, tagged with its tick and its outcome.
+    diag = dict(out["finalized"])
+    ba = [s for s in spans if s.name == "backend.ba"]
+    assert ba and {s.tick for s in ba} <= keyframes
+    assert any(s.attrs["solved"] for s in ba)
+    for s in ba:
+        assert s.attrs["skip"] == diag[s.tick].get("ba_skip")
+        assert s.attrs["solved"] == (s.attrs["rms"] is not None)
+    loop = [s for s in spans if s.name == "backend.loop"]
+    assert loop and {s.tick for s in loop} <= keyframes and all(s.attrs["stage"] == "find" for s in loop)
+    assert tracer.dropped() == 0
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+def test_tracing_changes_no_output(frames):
+    mode = dict(pipelined=True, pipeline_depth=2)
+    off = _run(frames, **mode)
+    profiling.tracing(True)
+    try:
+        on = _run(frames, **mode)
+        assert profiling.spans()
+    finally:
+        profiling.tracing(False)
+        profiling.clear()
+    _same(on, off)

@@ -30,6 +30,7 @@ from thor_slam_tpu_torch.engine import loop, posegraph
 from thor_slam_tpu_torch.engine import tracker as trk
 from thor_slam_tpu_torch.ops import brief, fast, rectify
 from thor_slam_tpu_torch.ops.image import gaussian_blur, median3x3
+from thor_slam_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -198,14 +199,22 @@ class LoopBackend:
     # -------------------------------------------------------- keyframes
 
     def on_keyframe(
-        self, world_t_body: np.ndarray, ts: float, sig: dict, map_t_odom: np.ndarray, frame_count: int
+        self, world_t_body: np.ndarray, ts: float, sig: dict, map_t_odom: np.ndarray, frame_count: int,
+        *, tick: int | None = None,
     ) -> None:
         """Record a keyframe signature; maybe start an async detection.
 
         ``world_t_body`` is the MAP-frame keyframe pose and ``sig`` the
         unpacked all-camera signature (:func:`~thor_slam_tpu_torch.engine.
         tracker.unpack_kf_sig`); its landmarks are stored in the map frame.
+        ``tick`` (the keyframe's dispatch number) tags the tracer's
+        ``backend.loop`` spans of this call and of the lookup's later stages.
         """
+        with profiling.span("backend.loop", tick=tick, stage="find"):
+            self._add_keyframe(world_t_body, ts, sig, map_t_odom, frame_count, tick)
+
+    def _add_keyframe(self, world_t_body, ts, sig, map_t_odom, frame_count, tick) -> None:
+        """The body of :meth:`on_keyframe`."""
         m = map_t_odom
         slot = self.kf_total % self.capacity
         self.kf_total += 1
@@ -245,6 +254,7 @@ class LoopBackend:
             "query": entry,
             "query_map_pose": world_t_body.copy(),
             "frame_count": frame_count,
+            "tick": tick,
         }
 
     def _match_pose(self, cand_e: dict, cam: int) -> np.ndarray:
@@ -272,38 +282,49 @@ class LoopBackend:
         if p["stage"] == "find":
             if not (block or _ready(p["event"])):
                 return None
-            votes, row = torch.stack([p["cand"].votes, p["cand"].keyframe]).tolist()
-            if votes < self.min_votes:
-                self._pending = None
-                return None
-            slot, cam = divmod(int(row), self._num_cams)
-            cand_e = next((e for e in self.db if e["slot"] == slot), None)
-            if cand_e is None:  # evicted while the lookup was in flight
-                self._pending = None
-                return None
-            entry = p["query"]
-            dev = self._device
-            p["ver"] = self._verify(
-                cand_e, cam, self._obs_norm(entry["obs_px"][0]),
-                torch.from_numpy(np.ascontiguousarray(entry["desc"][0]).view(np.int32)).to(dev),
-                torch.from_numpy(entry["valid"][0]).to(dev),
-                p["frame_count"],
-            )
-            p["event"] = _record_event(dev)
-            p["votes"] = int(votes)
-            p["cand_e"] = cand_e
-            p["stage"] = "verify"
-            if not block:
+            with profiling.span("backend.loop", tick=p["tick"], stage="find"):
+                self._start_verify(p)
+            if self._pending is None or not block:
                 return None
         if p["stage"] == "verify":
             if not (block or _ready(p["event"])):
                 return None
-            ver = loop.LoopVerification(*(t.detach().cpu().numpy() for t in p["ver"]))
-            self._pending = None
-            if not bool(ver.accepted):
+            with profiling.span("backend.loop", tick=p["tick"], stage="verify"):
+                ver = loop.LoopVerification(*(t.detach().cpu().numpy() for t in p["ver"]))
+                self._pending = None
+                accepted = bool(ver.accepted)
+            if not accepted:
                 return None
-            return self._apply(p, ver, diagnostics)
+            with profiling.span("backend.loop", tick=p["tick"], stage="posegraph"):
+                closure = self._apply(p, ver, diagnostics)
+                profiling.annotate(closed=closure is not None)
+            return closure
         return None
+
+    def _start_verify(self, p: dict) -> None:
+        """The find's readback; on enough votes, the verification's launch
+        (``p`` moves to ``"verify"``), else the lookup ends."""
+        votes, row = torch.stack([p["cand"].votes, p["cand"].keyframe]).tolist()
+        if votes < self.min_votes:
+            self._pending = None
+            return
+        slot, cam = divmod(int(row), self._num_cams)
+        cand_e = next((e for e in self.db if e["slot"] == slot), None)
+        if cand_e is None:  # evicted while the lookup was in flight
+            self._pending = None
+            return
+        entry = p["query"]
+        dev = self._device
+        p["ver"] = self._verify(
+            cand_e, cam, self._obs_norm(entry["obs_px"][0]),
+            torch.from_numpy(np.ascontiguousarray(entry["desc"][0]).view(np.int32)).to(dev),
+            torch.from_numpy(entry["valid"][0]).to(dev),
+            p["frame_count"],
+        )
+        p["event"] = _record_event(dev)
+        p["votes"] = int(votes)
+        p["cand_e"] = cand_e
+        p["stage"] = "verify"
 
     def _apply(self, p: dict, ver, diagnostics: dict | None):
         """Gate and apply a verified loop constraint (map side only)."""

@@ -86,6 +86,11 @@ class TrackBA:
         self._cam_weight: np.ndarray | None = None
         self._num_cams = 0
         self._device: torch.device | None = None
+        #: What the last :meth:`run` learned: ``solved`` (the solver ran),
+        #: ``rms`` (before, after) and ``correction_m`` (the last pose's move),
+        #: None where it stopped before; the engine's ``backend.ba`` span
+        #: carries them.
+        self.last_solve: dict = {"solved": False, "rms": None, "correction_m": None}
 
     def bind(self, setup: trk.CameraSetup, num_cams: int, mono_obs_weight: float = 0.25) -> None:
         """Bind the per-camera constants (tensors on the engine's device).
@@ -224,11 +229,14 @@ class TrackBA:
         last pose moves less than ``max_correction_m`` and more than the
         PnP solve's own noise floor.
 
+        ``last_solve`` holds what the call learned.
+
         Returns:
             ``(tracker_state, world_t_body, t_corr)``; ``t_corr`` is the
             applied odom-frame delta, or None (reason in
             ``diagnostics["ba_skip"]``).
         """
+        self.last_solve = {"solved": False, "rms": None, "correction_m": None}
         built = self.build_problem(diagnostics)
         if built is None:
             return tracker_state, world_t_body, None
@@ -236,6 +244,7 @@ class TrackBA:
         dev = self._device
         result = ba.bundle_adjust(problem, huber_delta=0.004)
         initial_rms, final_rms = torch.stack([result.initial_rms, result.final_rms]).tolist()
+        self.last_solve.update(solved=True, rms=(initial_rms, final_rms))
         # Only a meaningful improvement: near-neutral refinements are noise
         # reshuffling whose pose corrections compound as drift of their own.
         if not final_rms < 0.9 * initial_rms:
@@ -247,6 +256,7 @@ class TrackBA:
         ticks = list(self._ticks)[-self.window :]
         new_world = np.linalg.inv(refined_poses[len(ticks) - 1])
         corr = np.linalg.norm(new_world[:3, 3] - world_t_body[:3, 3])
+        self.last_solve["correction_m"] = float(corr)
         if corr > self.max_correction_m:
             diagnostics["ba_skip"] = f"correction {corr:.3f} m"
             return tracker_state, world_t_body, None  # junk guard

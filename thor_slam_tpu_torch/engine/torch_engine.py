@@ -85,7 +85,7 @@ from thor_slam_tpu_torch.engine.pipeline_exec import PipelineExecutor
 from thor_slam_tpu_torch.engine.setup import build_camera_setup
 from thor_slam_tpu_torch.parallel import mesh as mesh_mod
 from thor_slam_tpu_torch.pipeline.transfer import DoubleBufferedUploader
-from thor_slam_tpu_torch.utils import cuda_lib
+from thor_slam_tpu_torch.utils import cuda_lib, profiling
 from thor_slam_tpu_torch.utils.platform import pin_precision, select_device
 
 logger = logging.getLogger(__name__)
@@ -288,6 +288,9 @@ class TorchSlamEngine(SlamEngine):
         #: Per-tick poses of the last defer_sync flush, in stream order
         #: (None where tracking was LOST).
         self.last_flush_poses: list[SlamPose | None] = []
+        #: Ticks dispatched over the engine's life: the next one's number (a
+        #: record's "tick", the tracer's tick id; never reset).
+        self._ticks_dispatched = 0
         self._clear_host_state()
 
     def _clear_host_state(self) -> None:
@@ -450,30 +453,32 @@ class TorchSlamEngine(SlamEngine):
     def process_frames(self, frame_set: SynchronizedFrameSet) -> SlamPose | None:
         if self._tracker_state is None:
             raise RuntimeError("initialize() must be called before process_frames()")
-        t_in = time.perf_counter() if self._light_ctl.adaptive else None
-        light = self._schedule_light()
-        half = light and self._light_ctl.half_active
-        if not self._pipelined:
-            images = torch.from_numpy(self._stage(frame_set, light, half)).to(self._device)
-            pose = self._finalize_tick(self._dispatch_tick(images, frame_set, light, half))
-        else:
-            # Stage and upload tick k on the uploader's thread while the
-            # host finalizes the oldest in-flight tick.
-            if self._uploader is None:
-                self._uploader = DoubleBufferedUploader(
-                    lambda item, alloc: self._stage(*item, alloc=alloc), self._device,
-                    slots=self._pipeline_depth + 1,
-                )
-            self._uploader.submit((frame_set, light, half))
-            pose = None
-            if not self._defer_sync and self._pending_q.at_depth:
-                pose = self._pending_q.finalize_ready()
-            images = self._uploader.get()
-            self._pending_q.submit(self._dispatch_tick(images, frame_set, light, half))
-        if t_in is not None:
-            t_out = time.perf_counter()
-            self._light_ctl.on_tick(t_out - t_in, frame_set.timestamp, t_out)
-        return pose
+        with profiling.span("engine.process_frames", tick=self._ticks_dispatched, frame_ts=frame_set.timestamp):
+            t_in = time.perf_counter() if self._light_ctl.adaptive else None
+            light = self._schedule_light()
+            half = light and self._light_ctl.half_active
+            profiling.annotate(light=light, half=half)
+            if not self._pipelined:
+                images = torch.from_numpy(self._stage(frame_set, light, half)).to(self._device)
+                pose = self._finalize_tick(self._dispatch_tick(images, frame_set, light, half))
+            else:
+                # Stage and upload tick k on the uploader's thread while the
+                # host finalizes the oldest in-flight tick.
+                if self._uploader is None:
+                    self._uploader = DoubleBufferedUploader(
+                        lambda item, alloc: self._stage(*item, alloc=alloc), self._device,
+                        slots=self._pipeline_depth + 1,
+                    )
+                self._uploader.submit((frame_set, light, half))
+                pose = None
+                if not self._defer_sync and self._pending_q.at_depth:
+                    pose = self._pending_q.finalize_ready()
+                images = self._uploader.get()
+                self._pending_q.submit(self._dispatch_tick(images, frame_set, light, half))
+            if t_in is not None:
+                t_out = time.perf_counter()
+                self._light_ctl.on_tick(t_out - t_in, frame_set.timestamp, t_out)
+            return pose
 
     def _stage(self, frame_set: SynchronizedFrameSet, light: bool, half: bool, alloc=None) -> np.ndarray:
         return staging.stage_images(
@@ -506,6 +511,12 @@ class TorchSlamEngine(SlamEngine):
         """Front half of a tick: relocalization, IMU prediction, the step,
         and the start of its outputs' copies to the host. Returns the
         tick's record for :meth:`_finalize_values`."""
+        tick = self._ticks_dispatched
+        self._ticks_dispatched += 1
+        with profiling.span("engine.dispatch", tick=tick):
+            return self._dispatch(images, frame_set, light, half, tick)
+
+    def _dispatch(self, images, frame_set: SynchronizedFrameSet, light: bool, half: bool, tick: int) -> dict:
         if self._want_reloc:
             # Rate-limited: each attempt is a synchronous find + verify.
             if self._reloc_countdown > 0:
@@ -557,6 +568,7 @@ class TorchSlamEngine(SlamEngine):
             "light": light,
             "half": half,
             "mono_bootstrap": None,
+            "tick": tick,
         }
         self._start_fetch(rec)
         # After the tick's outputs are packed: they describe the step, not
@@ -585,12 +597,13 @@ class TorchSlamEngine(SlamEngine):
         """Wait for each record's copies and replace its tensors by numpy
         arrays, in place."""
         for rec in records:
-            if rec["event"] is not None:
-                rec["event"].synchronize()
-                rec["event"] = None
-            for key in self._FETCH_KEYS:
-                if isinstance(rec[key], torch.Tensor):
-                    rec[key] = rec[key].numpy()
+            with profiling.span("engine.fetch_wait", kind="wait", tick=rec["tick"]):
+                if rec["event"] is not None:
+                    rec["event"].synchronize()
+                    rec["event"] = None
+                for key in self._FETCH_KEYS:
+                    if isinstance(rec[key], torch.Tensor):
+                        rec[key] = rec[key].numpy()
 
     def _finalize_tick(self, rec: dict) -> SlamPose | None:
         """Back half of a synchronous tick: fetch, then finalize."""
@@ -736,9 +749,11 @@ class TorchSlamEngine(SlamEngine):
             if refreshed and self._state_enum == TrackingState.TRACKING:
                 # The correction lands on the newest live state; ticks
                 # dispatched before it get the epoch lift at their finalize.
-                self._tracker_state, world_t_body, t_corr = self._ba.run(
-                    world_t_body, covariance, self._tracker_state, self.last_diagnostics
-                )
+                with profiling.span("backend.ba", tick=rec["tick"]):
+                    self._tracker_state, world_t_body, t_corr = self._ba.run(
+                        world_t_body, covariance, self._tracker_state, self.last_diagnostics
+                    )
+                    profiling.annotate(skip=self.last_diagnostics.get("ba_skip"), **self._ba.last_solve)
                 if t_corr is not None:
                     self._ba_corr_total = t_corr @ self._ba_corr_total
                     self._imu.on_correction(world_t_body, t_corr, self._ba_corr_total)
@@ -750,7 +765,8 @@ class TorchSlamEngine(SlamEngine):
             self._keyframe_poses.append(SlamPose.from_4x4_matrix(map_pose, timestamp=ts))
             if self._config.enable_loop_closure and rec["kf_sig"] is not None:
                 self._loop.on_keyframe(
-                    map_pose, ts, trk.unpack_kf_sig(rec["kf_sig"]), self._map_t_odom, self._frame_count
+                    map_pose, ts, trk.unpack_kf_sig(rec["kf_sig"]), self._map_t_odom, self._frame_count,
+                    tick=rec["tick"],
                 )
             if len(self._keyframe_poses) > 10000:
                 self._keyframe_poses = self._keyframe_poses[-10000:]

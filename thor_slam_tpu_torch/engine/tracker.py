@@ -59,6 +59,7 @@ from thor_slam_tpu_torch.ops import brief, calib, fast, klt, match
 from thor_slam_tpu_torch.ops import stereo as stereo_ops
 from thor_slam_tpu_torch.ops.image import downsample2, gaussian_blur, median3x3, upsample2
 from thor_slam_tpu_torch.ops.lie import se3_inverse
+from thor_slam_tpu_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -336,21 +337,22 @@ def track_step(
     pnp_valid = hot.corr_valid & ~state.lm_pending if p.mono_bootstrap else hot.corr_valid
     # Normalized-coordinate inlier gate from the pixel budget (largest focal).
     inlier_threshold = p.inlier_threshold_px / torch.amax(setup.k_left[:, 0])
-    result = pnp.ransac_pnp(
-        state.lm_pos_w.reshape(c * n, 3),
-        hot.obs_norm.reshape(c * n, 2),
-        pnp_valid.reshape(c * n),
-        setup.cam_r_body.repeat_interleave(n, 0),
-        setup.cam_t_body.repeat_interleave(n, 0),
-        init_body_t_world,
-        num_hypotheses=p.ransac_hypotheses,
-        sample_size=p.ransac_sample_size,
-        inlier_threshold=inlier_threshold,
-        uniforms=uniforms,
-        generator=generator,
-        # Seeded mono slots carry their own weight; stereo slots are 1.
-        obs_weight=state.lm_weight.reshape(c * n) if p.has_mono else None,
-    )
+    with profiling.span("tracker.pnp"):
+        result = pnp.ransac_pnp(
+            state.lm_pos_w.reshape(c * n, 3),
+            hot.obs_norm.reshape(c * n, 2),
+            pnp_valid.reshape(c * n),
+            setup.cam_r_body.repeat_interleave(n, 0),
+            setup.cam_t_body.repeat_interleave(n, 0),
+            init_body_t_world,
+            num_hypotheses=p.ransac_hypotheses,
+            sample_size=p.ransac_sample_size,
+            inlier_threshold=inlier_threshold,
+            uniforms=uniforms,
+            generator=generator,
+            # Seeded mono slots carry their own weight; stereo slots are 1.
+            obs_weight=state.lm_weight.reshape(c * n) if p.has_mono else None,
+        )
     return _finish_step(
         params, setup, state, hot, images,
         body_t_world=result.body_t_world,
@@ -756,26 +758,31 @@ def _finish_step(
     c_, n_ = p.num_cams, p.max_keypoints
     # A full tick's one readback: it selects the branch.
     if refresh is None:
-        refresh = bool(refresh_t) if allow_refresh else False
+        refresh = False
+        if allow_refresh:
+            with profiling.span("tracker.refresh_readback", kind="wait"):
+                refresh = bool(refresh_t)
     if refresh and keyframe_minter is not None:
-        bank = keyframe_minter(world_t_body)
+        with profiling.span("tracker.keyframe"):
+            bank = keyframe_minter(world_t_body)
     elif refresh:
-        kf = run_keyframe_frontend(p, setup, images)
-        base = state.lm_id_counter if fresh_id_base is None else fresh_id_base
-        fresh_ids = base + torch.arange(c_ * n_, dtype=torch.int32, device=state.lm_id.device).reshape(c_, n_)
-        bank = mint_bank(
-            p, setup, world_t_body, kf,
-            anchor_ok=hot.corr_valid & inliers_cn,  # trusted tracks
-            cand_tracks_xy=hot.tracks_xy,
-            cand_pos_w=state.lm_pos_w,
-            cand_id=state.lm_id,
-            fresh_ids=fresh_ids,
-            cam_active=cam_active,
-            cand_weight=state.lm_weight,
-            cand_pending=state.lm_pending if p.mono_bootstrap else None,
-            cand_anchor_px=state.lm_anchor_px if p.mono_bootstrap else None,
-            prev_kf_pose=state.kf_world_t_body,
-        )
+        with profiling.span("tracker.keyframe"):
+            kf = run_keyframe_frontend(p, setup, images)
+            base = state.lm_id_counter if fresh_id_base is None else fresh_id_base
+            fresh_ids = base + torch.arange(c_ * n_, dtype=torch.int32, device=state.lm_id.device).reshape(c_, n_)
+            bank = mint_bank(
+                p, setup, world_t_body, kf,
+                anchor_ok=hot.corr_valid & inliers_cn,  # trusted tracks
+                cand_tracks_xy=hot.tracks_xy,
+                cand_pos_w=state.lm_pos_w,
+                cand_id=state.lm_id,
+                fresh_ids=fresh_ids,
+                cam_active=cam_active,
+                cand_weight=state.lm_weight,
+                cand_pending=state.lm_pending if p.mono_bootstrap else None,
+                cand_anchor_px=state.lm_anchor_px if p.mono_bootstrap else None,
+                prev_kf_pose=state.kf_world_t_body,
+            )
     else:  # landmarks persist, KLT anchors advance
         bank = (
             state.lm_pos_w, state.lm_desc, hot.corr_valid, hot.tracks_xy,

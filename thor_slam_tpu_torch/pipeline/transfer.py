@@ -29,6 +29,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from thor_slam_tpu_torch.utils import profiling
+
 
 class DoubleBufferedUploader:
     """Stage and upload tick k+1 while tick k computes.
@@ -63,7 +65,8 @@ class DoubleBufferedUploader:
     def submit(self, item: Any) -> None:
         """Start staging (and, on the card, copying) the next tick."""
         if self._pending is not None and not self._pending.done():
-            self._pending.result()  # the consumer is behind: finish the last one first
+            with profiling.span("engine.upload_wait", kind="wait"):
+                self._pending.result()  # the consumer is behind: finish the last one first
         slot = self._next
         self._next = (slot + 1) % len(self._buffers)
         self._pending = self._pool.submit(self._stage, item, slot)
@@ -102,7 +105,8 @@ class DoubleBufferedUploader:
         any work the caller's stream queues next."""
         if self._pending is None:
             raise RuntimeError("submit() must be called before get()")
-        images, copied = self._pending.result()
+        with profiling.span("engine.upload_wait", kind="wait"):
+            images, copied = self._pending.result()
         if copied is not None:
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(copied)
