@@ -2574,9 +2574,9 @@ def tick_launches(dev, width=640, height=400, max_keypoints=512) -> dict:
                 return fn(*args, **kwargs)
         return wrapper
 
-    wrapped = [(trk, "track_step", "track_step"), (trk, "run_hot_frontend", "hot_frontend"), (pnp, "ransac_pnp", "pnp"),
-               (trk, "_finish_step", "finish_step"), (trk, "run_keyframe_frontend", "keyframe_frontend"),
-               (trk, "mint_bank", "mint_bank")]
+    wrapped = [(trk, "track_step", "track_step"), (trk, "run_hot_frontend", "hot_frontend"),
+               (pnp, "ransac_pnp_graphed", "pnp"), (trk, "_finish_step", "finish_step"),
+               (trk, "run_keyframe_frontend", "keyframe_frontend"), (trk, "mint_bank", "mint_bank")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in wrapped]
     engine = engine_after_warmup()
     for mod, attr, name in wrapped:

@@ -338,7 +338,7 @@ def track_step(
     # Normalized-coordinate inlier gate from the pixel budget (largest focal).
     inlier_threshold = p.inlier_threshold_px / torch.amax(setup.k_left[:, 0])
     with profiling.span("tracker.pnp"):
-        result = pnp.ransac_pnp(
+        result = pnp.ransac_pnp_graphed(
             state.lm_pos_w.reshape(c * n, 3),
             hot.obs_norm.reshape(c * n, 2),
             pnp_valid.reshape(c * n),

@@ -91,7 +91,7 @@ def fake_describe_pair(images_a, images_b, xy, valid, oriented=False):
 VARIANTS = (
     ("FULL", None, None, None),
     ("no KLT", klt, "track_points_rig", fake_klt),
-    ("no RANSAC PnP", pnp, "ransac_pnp", fake_pnp),
+    ("no RANSAC PnP", pnp, "ransac_pnp_graphed", fake_pnp),
     ("no disparity refine", stereo_ops, "refine_disparity_photometric", fake_refine),
     ("no FAST detect", fast, "detect_keypoints_batched", fake_detect),
     ("no matching", match, "match_descriptors", fake_match),

@@ -166,7 +166,7 @@ def stage_table(w: int, h: int, c: int, device, reps: int = 10) -> list[dict]:
     gen = torch.Generator(device=device).manual_seed(0)  # the reference's PRNGKey(0)
     rows.append(row(
         f"RANSAC PnP ({p.ransac_hypotheses} hyp)",
-        lambda a, b: pnp.ransac_pnp(
+        lambda a, b: pnp.ransac_pnp_graphed(
             a, b, ones, rot, trans, eye4, num_hypotheses=p.ransac_hypotheses, sample_size=p.ransac_sample_size,
             generator=gen,
         ),
