@@ -278,6 +278,48 @@ def test_engine_spans(frames, tracer, mode):
     assert tracer.dropped() == 0
 
 
+def test_imu_span(frames, tracer):
+    """``engine.imu``: one span in each tick's dispatch that carries an IMU
+    batch, with the batch's ``samples`` and ``accel`` (whether the
+    prediction took the accelerometer path: here from the sixth gravity
+    observation on), no synchronizing call, and the engine's outputs those
+    of an untraced run."""
+    calibration, sets = frames
+    taken = []
+
+    def run(traced):
+        engine = TorchSlamEngine(params=dict(max_keypoints=256, keyframe_min_inliers=40), device="cpu",
+                                 adaptive_half_res=False, gravity_min_ticks=5)
+        engine.initialize(calibration, SlamConfig(num_cameras=4))
+        predict = engine._imu.predict
+
+        def logged(ts):
+            pred = predict(ts)
+            if traced:
+                taken.append(pred is not None and engine._imu.accel_pred_active())
+            return pred
+
+        engine._imu.predict = logged
+        poses = [engine.process_frames(fs) for fs in sets] + [engine.flush()]
+        engine.shutdown()
+        return [None if p is None else p.to_4x4_matrix() for p in poses]
+
+    profiling.tracing(False)
+    off = run(False)
+    profiling.tracing(True)
+    on = run(True)
+    _same(on, off)
+    spans = tracer.spans()
+    by_index = {s.index: s for s in spans}
+    imu = [s for s in spans if s.name == "engine.imu"]
+    with_imu = [k for k, fs in enumerate(sets) if fs.sensor_data is not None]
+    assert len(with_imu) >= TICKS - 1 and [s.tick for s in imu] == with_imu
+    assert all(by_index[s.parent].name == "engine.dispatch" and by_index[s.parent].tick == s.tick for s in imu)
+    assert [s.attrs["samples"] for s in imu] == [len(sets[k].sensor_data["gyroscope"]) for k in with_imu]
+    assert [s.attrs["accel"] for s in imu] == taken and any(taken) and not all(taken)
+    assert all(s.syncs == 0 and s.kind == "work" for s in imu)
+
+
 def _same(a, b):
     if isinstance(a, dict):
         assert a.keys() == b.keys()

@@ -534,8 +534,12 @@ class TorchSlamEngine(SlamEngine):
 
         prediction = None
         if self._use_imu and frame_set.sensor_data is not None:
-            self._imu.ingest(frame_set.sensor_data, frame_set.sensor_timestamp)
-            prediction = self._imu.predict(frame_set.timestamp)
+            gyro = frame_set.sensor_data.get("gyroscope")
+            samples = len(gyro) if np.ndim(gyro) == 2 else int(gyro is not None)  # a batch, or one sample
+            with profiling.span("engine.imu", samples=samples):
+                self._imu.ingest(frame_set.sensor_data, frame_set.sensor_timestamp)
+                prediction = self._imu.predict(frame_set.timestamp)
+                profiling.annotate(accel=prediction is not None and self._imu.accel_pred_active())
 
         cam_active = None
         if frame_set.stale_sources:

@@ -17,6 +17,14 @@ trajectory), and a ``calibration.npz`` that ``EurocCameraSource`` picks up
 in place of the standard VI-sensor calibration (real ASL sequences don't
 carry the file and keep the standard values).
 
+``--imu-frame vi-sensor`` (the port's alone) writes the IMU as EuRoC's
+sensor head carries it instead: in its own body frame, placed against cam0
+by the VI-sensor's published ``T_BS`` of cam0 (6.9 cm off, axes turned),
+its specific force measured at that place. The sequence then also holds
+the three ``sensor.yaml`` files that describe the head, and
+``calibration.npz`` carries the IMU's pose in cam0 (``c0_t_imu``). The
+default, ``cam0``, writes what it always has.
+
 Usage:
     python -m thor_slam_tpu_torch.scripts.make_euroc_synthetic --out /tmp/seq [--frames 60]
     python -m thor_slam_tpu_torch.scripts.run_euroc --sequence /tmp/seq --frames 60
@@ -56,7 +64,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Horizontal blur px per rad/s of yaw rate")
     parser.add_argument("--gyro-bias", type=float, default=0.0,
                         help="Injected constant gyro bias (rad/s, z axis)")
+    parser.add_argument(
+        "--imu-frame", choices=("cam0", "vi-sensor"), default="cam0",
+        help="The IMU's frame: cam0's axes at cam0, or the VI-sensor's body frame "
+             "placed by its published T_BS, with the sensor.yaml files",
+    )
     return parser.parse_args(argv)
+
+
+def imu_sample_at(traj, t: float, body_t_imu: np.ndarray, dt: float = 1e-4) -> tuple[np.ndarray, np.ndarray]:
+    """(gyro, accel) of an IMU at ``body_t_imu`` on the trajectory's body at
+    time ``t``, in the IMU's axes: ``OrbitTrajectory.imu_sample``'s central
+    differences of the IMU's own pose, so that the specific force holds the
+    lever arm's centripetal and tangential terms."""
+    from thor_slam_tpu_torch.camera.sources.synthetic import GRAVITY_W
+
+    m0, m1, m2 = (traj.pose(t + k * dt) @ body_t_imu for k in (-1.0, 0.0, 1.0))
+    omega_skew = m1[:3, :3].T @ ((m2[:3, :3] - m0[:3, :3]) / (2.0 * dt))
+    gyro = np.array([omega_skew[2, 1], omega_skew[0, 2], omega_skew[1, 0]])
+    acc_w = (m2[:3, 3] - 2.0 * m1[:3, 3] + m0[:3, 3]) / (dt * dt)
+    return gyro, m1[:3, :3].T @ (acc_w - GRAVITY_W)
 
 
 def build_source(args: argparse.Namespace):
@@ -108,6 +135,12 @@ def write_sequence(args: argparse.Namespace, src, traj) -> int:
         np.linalg.inv(src.get_extrinsics()[0].to_4x4_matrix())
         @ src.get_sensor_extrinsics().to_4x4_matrix()
     )[:3, :3]
+    vi_sensor = args.imu_frame == "vi-sensor"
+    if vi_sensor:
+        from thor_slam_tpu_torch.camera.sources.euroc_sensor import T_BS_CAM0
+
+        c0_t_imu = np.linalg.inv(T_BS_CAM0)
+        body_t_imu = src.get_extrinsics()[0].to_4x4_matrix() @ c0_t_imu
     cam_rows: dict[str, list[str]] = {"cam0": [], "cam1": []}
     gt_rows: list[str] = []
     imu_rows: list[str] = []
@@ -132,11 +165,13 @@ def write_sequence(args: argparse.Namespace, src, traj) -> int:
             + ",".join(["0.0"] * 9)
         )
         if data is not None:
-            for t_s, gyro, accel in zip(
-                data["timestamps"],
-                data["gyroscope"] @ c0_r_imu.T,
-                data["accelerometer"] @ c0_r_imu.T,
-            ):
+            if vi_sensor:
+                gyros, accels = (np.stack(v) for v in zip(*(imu_sample_at(traj, t, body_t_imu)
+                                                            for t in data["timestamps"])))
+                gyros = gyros + [0.0, 0.0, args.gyro_bias]  # the bias knob, on the IMU's own z
+            else:
+                gyros, accels = data["gyroscope"] @ c0_r_imu.T, data["accelerometer"] @ c0_r_imu.T
+            for t_s, gyro, accel in zip(data["timestamps"], gyros, accels):
                 imu_rows.append(
                     f"{int(round(t_s * 1e9))},"
                     f"{gyro[0]:.9f},{gyro[1]:.9f},{gyro[2]:.9f},"
@@ -158,12 +193,21 @@ def write_sequence(args: argparse.Namespace, src, traj) -> int:
     intr = src.get_intrinsics()
     ext = src.get_extrinsics()
     c0_t_c1 = np.linalg.inv(ext[0].to_4x4_matrix()) @ ext[1].to_4x4_matrix()
+    extra = {}
+    if vi_sensor:
+        from thor_slam_tpu_torch.camera.sources.euroc_sensor import sensor_yaml
+
+        extra["c0_t_imu"] = c0_t_imu
+        t_bs_c0 = np.linalg.inv(c0_t_imu)
+        (mav / "cam0" / "sensor.yaml").write_text(sensor_yaml(t_bs_c0, args.fps, intr[0], "synthetic cam0"))
+        (mav / "cam1" / "sensor.yaml").write_text(sensor_yaml(t_bs_c0 @ c0_t_c1, args.fps, intr[1], "synthetic cam1"))
+        (mav / "imu0" / "sensor.yaml").write_text(sensor_yaml(np.eye(4), 200.0, None, "synthetic IMU"))
     np.savez(
         mav / "calibration.npz",
         width=np.int64(args.width), height=np.int64(args.height),
         k0=np.asarray(intr[0].matrix), d0=np.asarray(intr[0].coeffs),
         k1=np.asarray(intr[1].matrix), d1=np.asarray(intr[1].coeffs),
-        c0_t_c1=c0_t_c1,
+        c0_t_c1=c0_t_c1, **extra,
     )
     return len(imu_rows)
 

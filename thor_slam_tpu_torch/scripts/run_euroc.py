@@ -4,7 +4,10 @@ Port of the JAX package's ``scripts/run_euroc.py``, with the same flags and
 output lines: the accuracy path. Expects the standard ASL layout; if
 ``mav0/state_groundtruth_estimate0/data.csv`` exists, reports ATE-RMSE
 against it, for the odometry stream, the loop-corrected world estimate
-(after a closure) and the keyframes of the map. The engine runs on the
+(after a closure) and the keyframes of the map. The sequence's calibration,
+its IMU's pose in cam0 included, is read as ``camera/sources/euroc_sensor``
+says (the three ``sensor.yaml`` files of a recorded sequence), where the
+reference's runner declares the IMU at cam0 in cam0's axes. The engine runs on the
 card unless ``--cpu`` or ``--device`` says otherwise; ``--devices N``
 tracks over N devices (landmark-slot sharding for this one camera), N
 virtual shards with ``--cpu``.
@@ -108,13 +111,13 @@ def main(argv=None) -> int:
 
     logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
     from thor_slam_tpu_torch.camera.rig import CameraRig
-    from thor_slam_tpu_torch.camera.sources.dataset import EurocCameraSource
+    from thor_slam_tpu_torch.camera.sources.euroc_sensor import EurocSensorSource, imu_extrinsics
     from thor_slam_tpu_torch.slam.interface import SlamConfig
     from thor_slam_tpu_torch.utils.evaluation import ate_rmse
 
     seq = Path(args.sequence)
     try:
-        src = EurocCameraSource(seq, read_imu=not args.no_imu, max_frames=args.frames)
+        src = EurocSensorSource(seq, read_imu=not args.no_imu, max_frames=args.frames)
     except FileNotFoundError as e:
         print(f"run_euroc: {e}", file=sys.stderr)
         return 2
@@ -122,7 +125,8 @@ def main(argv=None) -> int:
 
     est_ts, est_pos, world_pos = [], [], []
     t0 = time.monotonic()
-    with CameraRig([src], imu_source=src.name if src.has_sensor_data else None) as rig:
+    imu_source = src.name if src.has_sensor_data else None
+    with CameraRig([src], imu_extrinsics=imu_extrinsics(src), imu_source=imu_source) as rig:
         engine.initialize(
             rig.calibration,
             SlamConfig(num_cameras=2, enable_loop_closure=not args.no_loop),
