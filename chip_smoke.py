@@ -1919,7 +1919,7 @@ def sync_calls_by_tick_type(dev, inputs: dict) -> dict:
     for fs in frames[:WARMUP_TICKS]:
         engine.process_frames(fs)
     kinds = []
-    step = trk.track_step
+    step = trk.track_step_graphed  # the engine's tick
 
     def ranged_step(*args, **kwargs):
         with record_function("phase:track_step"):
@@ -1927,14 +1927,14 @@ def sync_calls_by_tick_type(dev, inputs: dict) -> dict:
         kinds.append("light" if not kwargs.get("allow_refresh", True) else "keyframe" if out.refreshed_host else "full")
         return state, out
 
-    trk.track_step = ranged_step
+    trk.track_step_graphed = ranged_step
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for fs in frames[WARMUP_TICKS:]:
                 with record_function("phase:call"):
                     engine.process_frames(fs)
     finally:
-        trk.track_step = step
+        trk.track_step_graphed = step
     engine.flush()
     engine.shutdown()
     spans, inside = _profiled_spans(prof, ("call", "track_step"))
@@ -2530,8 +2530,8 @@ def run_spmd(dev, reuse: dict, seq_args, kernels: bool = True) -> dict:
 _COPY_CALLS = ("cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy")
 #: Phase -> the phases nested in it (a parent's own count excludes them).
 _PHASES = {
-    "tick": ("track_step",), "track_step": ("hot_frontend", "pnp", "finish_step"), "hot_frontend": (), "pnp": (),
-    "finish_step": ("keyframe_frontend", "mint_bank"), "keyframe_frontend": (), "mint_bank": (),
+    "tick": ("track_step",), "track_step": ("hot_frontend", "pnp", "back", "finish_step"), "hot_frontend": (),
+    "pnp": (), "back": (), "finish_step": ("keyframe_frontend", "mint_bank"), "keyframe_frontend": (), "mint_bank": (),
 }
 
 
@@ -2541,9 +2541,12 @@ def tick_launches(dev, width=640, height=400, max_keypoints=512) -> dict:
     The slice's engine on the flagship rig: after warm-up, PROFILE_TICKS
     ticks run under torch.profiler with the tracker's phases wrapped in
     named ranges; every runtime launch call is counted into the innermost
-    range that holds its start. Then a fresh engine runs TIMED_TICKS
-    unprofiled ticks for the tick's time. Works on any tree whose tracker
-    has these functions, so a parent can be counted by the same code.
+    range that holds its start. The profiled engine ticks through the
+    eager ``track_step``, whose phases these are. Then a fresh engine runs
+    TIMED_TICKS unprofiled ticks (the graphed tick where the tree has one)
+    for the tick's time. Works on any tree whose tracker has these
+    functions, or the parent's (``_finish_step`` for the back half), so a
+    parent can be counted by the same code.
     """
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2575,12 +2578,20 @@ def tick_launches(dev, width=640, height=400, max_keypoints=512) -> dict:
         return wrapper
 
     wrapped = [(trk, "track_step", "track_step"), (trk, "run_hot_frontend", "hot_frontend"),
-               (pnp, "ransac_pnp_graphed", "pnp"), (trk, "_finish_step", "finish_step"),
-               (trk, "run_keyframe_frontend", "keyframe_frontend"), (trk, "mint_bank", "mint_bank")]
+               (pnp, "ransac_pnp_graphed", "pnp"), (trk, "_back", "back"), (trk, "_complete", "finish_step"),
+               (trk, "_finish_step", "finish_step"), (trk, "run_keyframe_frontend", "keyframe_frontend"),
+               (trk, "mint_bank", "mint_bank")]
+    wrapped = [w for w in wrapped if hasattr(w[0], w[1])]
+    if hasattr(trk, "_complete"):  # the split tick: its back half is no longer _finish_step
+        wrapped = [w for w in wrapped if w[1] != "_finish_step"]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in wrapped]
+    if hasattr(trk, "track_step_graphed"):
+        saved.append((trk, "track_step_graphed", trk.track_step_graphed))
     engine = engine_after_warmup()
     for mod, attr, name in wrapped:
         setattr(mod, attr, ranged(name, getattr(mod, attr)))
+    if hasattr(trk, "track_step_graphed"):
+        trk.track_step_graphed = lambda *args, **kwargs: trk.track_step(*args, **kwargs)
     try:
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
         with profile(activities=activities) as prof:

@@ -567,3 +567,128 @@ def test_record_is_ready_only_after_its_pinned_copy_holds_the_tick(cuda_device):
     engine._fetch_records([rec])
     assert rec["event"] is None and isinstance(rec["packed"], np.ndarray)
     np.testing.assert_array_equal(rec["packed"], np.arange(57, dtype=np.float32) * 2.0)
+
+
+# ------------------------------------------------ the tick's CUDA graphs
+
+
+@pytest.mark.cuda
+def test_graphed_tick_equals_the_eager_tick(cuda_device):
+    """``track_step_graphed`` against the eager ``track_step`` over the plan
+    of ``test_torch_tracker_graph.py`` (keyframe, full, light and half-res
+    light ticks, an IMU prediction, a stale camera, a state moved as BA
+    moves it and a reset), the graphed side fed its live cameras and
+    predictions from pinned host memory as the engine feeds it: every
+    tick's state, outputs and packed records bit for bit, compared after
+    the last tick, so a result overwritten by a later replay shows. One
+    capture a key (full, light, half-res light, with a prediction), and
+    ``graph="replay"`` on ``tracker.front`` and ``tracker.back`` from a
+    key's second call on."""
+    from test_torch_tracker_graph import PLAN, assert_rows_equal, plan_kinds, rig_frames, run_plan
+
+    from thor_slam_tpu_torch.engine import tracker as trk
+    from thor_slam_tpu_torch.utils import profiling
+
+    params, setup_np, frames = rig_frames()
+    want = run_plan(trk.track_step, params, setup_np, frames, cuda_device)
+    graphed = trk.GraphedTrackStep()
+    profiling.tracing(False)
+    profiling.clear()
+    profiling.tracing(True)
+    try:
+        got = run_plan(graphed, params, setup_np, frames, cuda_device, host_inputs=True)
+        torch.cuda.synchronize()
+        spans = profiling.spans()
+    finally:
+        profiling.tracing(False)
+        profiling.clear()
+    assert_rows_equal(got, want)
+    kinds = plan_kinds(want)
+    assert kinds[0] == kinds[10] == "keyframe" and "full" in kinds and plan_kinds(got) == kinds
+    keys = [(t.get("light", False), t.get("half", False), t.get("pred", False)) for t in PLAN]
+    assert graphed.captures == len(set(keys)) == 4
+    first = [keys.index(key) == k for k, key in enumerate(keys)]
+    for name in ("tracker.front", "tracker.back"):
+        modes = [s.attrs["graph"] for s in spans if s.name == name]
+        assert modes == ["capture" if f else "replay" for f in first], name
+
+
+@pytest.mark.cuda
+def test_graphed_light_tick_makes_no_synchronizing_call(cuda_device):
+    """A light tick's replay under sync-debug ``error``: its copies in, the
+    front's graphs and gathers, the solve, the back and the clones never
+    wait for the device."""
+    from test_torch_tracker_graph import rig_frames
+
+    from thor_slam_tpu_torch.engine import convert
+    from thor_slam_tpu_torch.engine import tracker as trk
+
+    params, setup_np, frames = rig_frames()
+    setup = convert.setup_to_torch(setup_np, cuda_device)
+    graphed = trk.GraphedTrackStep()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    state, _ = graphed(params, setup, trk.init_state(params, cuda_device),
+                       torch.from_numpy(frames[0]).to(cuda_device), generator=gen)
+    light = [torch.from_numpy(np.ascontiguousarray(f[:, :1])).to(cuda_device) for f in frames[1:3]]
+    state, _ = graphed(params, setup, state, light[0], generator=gen, allow_refresh=False)  # the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, out = graphed(params, setup, state, light[1], generator=gen, allow_refresh=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(out.num_inliers) >= 50 and graphed.captures == 2
+
+
+@pytest.mark.cuda
+def test_engine_captures_every_tick_variant_at_initialize(cuda_device):
+    """On a card ``initialize`` captures the graphed tick of every variant a
+    tick can take (full, light and half-res light, each with and without
+    the IMU's prediction: six) by dry ticks that launch no hand-written
+    kernel; then no tick of the stream captures, every ``tracker.front`` and
+    ``tracker.back`` says ``replay``."""
+    from thor_slam_tpu_torch.camera.rig import CameraRig
+    from thor_slam_tpu_torch.camera.sources.synthetic import (
+        OrbitTrajectory,
+        SyntheticRigSpec,
+        SyntheticWorld,
+        make_synthetic_rig,
+    )
+    from thor_slam_tpu_torch.engine import tracker as trk
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+    from thor_slam_tpu_torch.slam.interface import SlamConfig
+    from thor_slam_tpu_torch.utils import profiling
+
+    spec = SyntheticRigSpec(num_sources=2, stereo=True, width=160, height=120, fps=30.0, baseline_m=0.12)
+    sources, rig_ext, _, _ = make_synthetic_rig(
+        spec, world=SyntheticWorld(half_extents=(4.0, 4.0, 2.0)),
+        trajectory=OrbitTrajectory(radius=1.5, angular_rate=0.5),
+    )
+    engine = TorchSlamEngine(params=dict(max_keypoints=96, keyframe_min_inliers=40), device=cuda_device,
+                             adaptive_half_res=True)
+    with CameraRig(sources, rig_extrinsics=rig_ext, imu_source=sources[0].name) as rig:
+        frames = [rig.get_synchronized_frames() for _ in range(16)]
+        before = trk.track_step_graphed.captures
+        patches_cuda.reset_counts()
+        fast_cuda.reset_counts()
+        engine.initialize(rig.calibration, SlamConfig(enable_loop_closure=False, expected_fps=30.0))
+    torch.cuda.synchronize()
+    assert engine._light_ctl.adaptive
+    assert trk.track_step_graphed.captures - before == 6
+    assert patches_cuda.counts["kernel"] == fast_cuda.counts["kernel"] == 0
+    profiling.tracing(False)
+    profiling.clear()
+    profiling.tracing(True)
+    try:
+        for fs in frames:
+            engine.process_frames(fs)
+        torch.cuda.synchronize()
+        spans = profiling.spans()
+    finally:
+        profiling.tracing(False)
+        profiling.clear()
+    modes = [s.attrs["graph"] for s in spans if s.name in ("tracker.front", "tracker.back")]
+    assert len(modes) == 2 * len(frames) and set(modes) == {"replay"}
+    assert trk.track_step_graphed.captures - before == 6
+    assert any(s.attrs.get("light") for s in spans if s.name == "engine.process_frames")

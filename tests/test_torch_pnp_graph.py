@@ -224,7 +224,9 @@ def test_engine_poses_equal_the_eager_solve(cuda_device, monkeypatch):
     """60 ticks of ``TorchSlamEngine`` on the flagship cell's configuration
     and frames: every finalized tick's output (pose, inliers, covariance,
     ...) and every delivered pose the same with the graphed solve as with
-    ``track_step`` patched back to the eager ``ransac_pnp``."""
+    ``track_step`` patched back to the eager ``ransac_pnp``. The device is
+    synchronized before each call, so that a depth-6 call hands over the
+    same ticks in both runs however fast either runs."""
     from benchmark.core import spec, traffic
     from thor_slam_tpu_torch.engine import tracker
     from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
@@ -247,7 +249,11 @@ def test_engine_poses_equal_the_eager_solve(cuda_device, monkeypatch):
 
         engine._finalize_values = logged
         frames = traffic.FrameSetFactory(rig, mix["fps"], mix.get("imu_hz", 0))
-        out = [engine.process_frames(frames(k)) for k in range(60)] + [engine.flush()]
+        out = []
+        for k in range(60):
+            torch.cuda.synchronize(cuda_device)
+            out.append(engine.process_frames(frames(k)))
+        out.append(engine.flush())
         engine.shutdown()
         return ticks, [(p.timestamp, p.to_4x4_matrix()) for p in out if p is not None]
 
@@ -259,10 +265,7 @@ def test_engine_poses_equal_the_eager_solve(cuda_device, monkeypatch):
         assert ta == tb and a.keys() == b.keys()
         for key in a:
             np.testing.assert_array_equal(a[key], b[key], err_msg=key)
-    # Which tick a depth-6 call hands over depends on which records the
-    # device had finished: compare the poses both runs delivered.
-    delivered = [dict(r[1]) for r in (graphed, eager)]
-    common = delivered[0].keys() & delivered[1].keys()
-    assert len(common) >= 5
-    for ts in common:
-        np.testing.assert_array_equal(delivered[0][ts], delivered[1][ts])
+    assert len(graphed[1]) == len(eager[1]) >= 5
+    for (ta, a), (tb, b) in zip(graphed[1], eager[1]):
+        assert ta == tb
+        np.testing.assert_array_equal(a, b)

@@ -278,6 +278,23 @@ def test_engine_spans(frames, tracer, mode):
     assert tracer.dropped() == 0
 
 
+def test_tracker_segment_spans(frames, tracer):
+    """Each dispatched tick: one ``tracker.front``, then ``tracker.pnp``,
+    then one ``tracker.back``, all in its ``engine.dispatch``; the two
+    segments carry ``graph`` (``"eager"``: CPU tensors take the eager
+    tick)."""
+    _run(frames, pipelined=True, pipeline_depth=2)
+    spans = tracer.spans()
+    by_index = {s.index: s for s in spans}
+    named = {name: [s for s in spans if s.name == name] for name in ("tracker.front", "tracker.pnp", "tracker.back")}
+    for name, ss in named.items():
+        assert [s.tick for s in ss] == list(range(TICKS)), name
+        assert all(by_index[s.parent].name == "engine.dispatch" and by_index[s.parent].tick == s.tick for s in ss)
+    for front, solve, back in zip(*named.values()):
+        assert front.attrs == back.attrs == {"graph": "eager"}
+        assert front.t1 <= solve.t0 and solve.t1 <= back.t0
+
+
 def test_imu_span(frames, tracer):
     """``engine.imu``: one span in each tick's dispatch that carries an IMU
     batch, with the batch's ``samples`` and ``accel`` (whether the

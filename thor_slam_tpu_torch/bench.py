@@ -115,7 +115,7 @@ def _device_sequence(sources, seq_len, device):
 
 def _bench_device_scan(params, setup, sources, frames, seq_len, device):
     """Tracked FPS with the images on the device: ``frames`` ticks of
-    ``track_step`` looped from the host, one fetch at the end of a trial.
+    ``track_step_graphed`` looped from the host, one fetch at the end of a trial.
 
     The reference's ``_bench_device_scan`` scans the sequence in one
     dispatch; this loop stands in for it (see the module docstring). As
@@ -136,7 +136,7 @@ def _bench_device_scan(params, setup, sources, frames, seq_len, device):
         state = trk.init_state(params, device, world_t_body0=w0)
         gen = torch.Generator(device=device).manual_seed(0)
         for i in idx:
-            state, out = trk.track_step(params, setup_t, state, seq[i], generator=gen)
+            state, out = trk.track_step_graphed(params, setup_t, state, seq[i], generator=gen)
         # One host fetch closes the trial: the last pose and inlier count.
         return torch.cat([out.world_t_body.reshape(-1), out.num_inliers.float().reshape(1)]).cpu()
 
@@ -165,7 +165,7 @@ def _bench_device_tick(params, setup, sources, warmup, frames, seq_len, device):
     seq = _device_sequence(sources, seq_len, device)
 
     def step(state, i):
-        state, out = trk.track_step(params, setup_t, state, seq[_palindrome(i, seq_len)], generator=gen)
+        state, out = trk.track_step_graphed(params, setup_t, state, seq[_palindrome(i, seq_len)], generator=gen)
         return state, trk.pack_output(out)
 
     for i in range(warmup):

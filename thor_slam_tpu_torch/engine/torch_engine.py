@@ -16,7 +16,8 @@ Each :meth:`process_frames`
 3. dispatches the tick (:meth:`_dispatch_tick`): a relocalization attempt
    when armed (rate-limited; every in-flight tick is finalized first), the
    IMU prediction (:class:`~thor_slam_tpu_torch.engine.backends.
-   ImuFusion`), one :func:`tracker.track_step` (the sharded step of
+   ImuFusion`), one :data:`tracker.track_step_graphed` (the tick replayed
+   from CUDA graphs on a card; the sharded step of
    :mod:`~thor_slam_tpu_torch.parallel.mesh` with ``devices`` > 1), the
    packing of its fresh
    outputs and their device-to-host copies into pinned memory behind one
@@ -38,10 +39,10 @@ pipeline_exec.PipelineExecutor`: ``process_frames`` returns the pose of the
 tick ``pipeline_depth`` calls back (None while the pipeline fills) and
 :meth:`flush` the last one; under ``defer_sync`` nothing is finalized
 until :meth:`flush`, which replays the whole stream
-(:attr:`last_flush_poses`). Every tick still waits for the device inside
-``track_step`` on small copies of constants from pageable memory, and a
-full tick once more on its keyframe flag, so the pipeline does not yet run
-ahead of the device (ROADMAP Queue 1 #18).
+(:attr:`last_flush_poses`). A full tick waits for the device once, on its
+keyframe flag, so the pipeline runs ahead of the device across light
+ticks only; the IMU prediction and the live cameras reach the step from
+pinned memory, without a wait.
 Map save/load, state checkpoints and relocalization live in
 :mod:`~thor_slam_tpu_torch.engine.persistence`.
 
@@ -124,9 +125,10 @@ class TorchSlamEngine(SlamEngine):
         loop_noise_gate_sigma: Loop-closure parameters
             (:class:`LoopBackend`); the noise gate also gates BA.
         prewarm_degraded: The reference compiles its step's masked-camera
-            variant at ``initialize``. Nothing is compiled per variant here:
-            it runs the ``cam_active`` path once, on a throwaway state, at
-            ``initialize``.
+            variant at ``initialize``. Here it runs the ``cam_active`` path
+            once, on a throwaway state, at ``initialize`` (on a card the
+            tick's graphs, which do not depend on the mask, are captured
+            there for every variant in any case).
         pipelined: Overlap staging, upload and finalize with device compute:
             ``process_frames(k)`` returns the pose of tick k - depth (None
             while the pipeline fills); :meth:`flush` returns the last.
@@ -385,9 +387,8 @@ class TorchSlamEngine(SlamEngine):
             logger.info("SPMD tracking over %d devices (%s-sharded)", self._n_devices, axis_mode)
         self._ba.bind(self._setup, self._params.num_cams, mono_obs_weight=self._params.mono_obs_weight)
         self._loop.bind(self._setup, self._params.max_keypoints)
-        # Light-tick scheduling and the adaptive controller: the variants
-        # the reference compiles need nothing here.
-        self._light_ctl.resolve(
+        # Light-tick scheduling and the adaptive controller.
+        light_variants = self._light_ctl.resolve(
             self._n_devices, self._defer_sync, height, width, getattr(self._config, "expected_fps", 0.0) or 0.0
         )
         # One-time solver and transform set-up here, not in a tick.
@@ -396,6 +397,8 @@ class TorchSlamEngine(SlamEngine):
         if self._config.enable_loop_closure:
             self._loop.warm()
         self._zero_img = np.zeros((height, width), np.uint8)
+        if self._mesh is None and self._device.type == "cuda":
+            self._capture_variants(light_variants, height, width)
         if self._prewarm_degraded:
             # The masked-camera path once, on a throwaway state and draws.
             self._track(
@@ -412,6 +415,25 @@ class TorchSlamEngine(SlamEngine):
             self._params.num_cams, width, height, self._device, self._enable_ba, self._use_imu,
             self._config.enable_loop_closure, self._pipelined, self._pipeline_depth, self._light_ctl.light,
         )
+
+    def _capture_variants(self, light_variants: list[bool], height: int, width: int) -> None:
+        """Capture the graphed tick of every variant a tick can take (full,
+        and each light variant: half-res or not; each with and without the
+        IMU's prediction), as the reference compiles its step's, so that no
+        tick captures one (the adaptive controller switches to half-res
+        mid-stream). Dry ticks on a throwaway state and generator: no
+        hand-written kernel launches."""
+        c = self._params.num_cams
+        shapes = [((c, 2, height, width), False)]
+        shapes += [((c, 1, height // 2, width // 2) if half else (c, 1, height, width), half) for half in light_variants]
+        preds = [None] + ([self._host_tensor(np.eye(4, dtype=np.float32))] if self._use_imu else [])
+        for shape, half in shapes:
+            for pred in preds:
+                trk.track_step_graphed.capture(
+                    self._params, self._setup, self._fresh_state(),
+                    torch.zeros(shape, dtype=torch.uint8, device=self._device), generator=self._fresh_generator(),
+                    pose_prediction=pred, allow_refresh=shape[1] == 2, half_res=half,
+                )
 
     def _make_mesh(self) -> mesh_mod.Mesh:
         """The mesh of ``devices``: as given, N virtual shards on the
@@ -440,9 +462,9 @@ class TorchSlamEngine(SlamEngine):
         return mesh_mod.shard_generators(self._mesh, self._seed)
 
     def _track(self, state, images, generator, cam_active=None, pose_prediction=None, light=False, half=False):
-        """One step of the tracker: ``track_step``, or the sharded step."""
+        """One step of the tracker: ``track_step_graphed``, or the sharded step."""
         if self._mesh is None:
-            return trk.track_step(
+            return trk.track_step_graphed(
                 self._params, self._setup, state, images, generator=generator, cam_active=cam_active,
                 pose_prediction=pose_prediction, allow_refresh=not light, half_res=half,
             )
@@ -543,13 +565,11 @@ class TorchSlamEngine(SlamEngine):
 
         cam_active = None
         if frame_set.stale_sources:
-            cam_active = torch.tensor(
-                [name not in frame_set.stale_sources for name in self._source_order], device=self._device
-            )
+            cam_active = self._host_tensor([name not in frame_set.stale_sources for name in self._source_order])
         self._light_ctl.note_dispatch(light)
         self._tracker_state, out = self._track(
             self._tracker_state, images, self._generator, cam_active=cam_active,
-            pose_prediction=None if prediction is None else torch.from_numpy(prediction).to(self._device),
+            pose_prediction=None if prediction is None else self._host_tensor(prediction),
             light=light, half=half,
         )
         # Only freshly packed tensors enter the record, never one that
@@ -580,6 +600,12 @@ class TorchSlamEngine(SlamEngine):
         if self._all_mono and not self._mono_boot_done:
             rec["mono_bootstrap"] = self._attempt_mono_bootstrap()
         return rec
+
+    def _host_tensor(self, values) -> torch.Tensor:
+        """A host tensor for the step, pinned when the step runs on a card:
+        the step copies it to the device without waiting."""
+        t = torch.as_tensor(values)
+        return t.pin_memory() if self._device.type == "cuda" else t
 
     def _start_fetch(self, rec: dict) -> None:
         """Start the record's device-to-host copies into pinned memory and

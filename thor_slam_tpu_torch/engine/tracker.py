@@ -37,8 +37,9 @@ over both eyes of every camera, the same counts as on a stereo rig, and
 The reference selects the keyframe branch with a device-side ``lax.cond``;
 here it is a host ``if`` on the refresh flag, one 1-byte readback per full
 tick (:attr:`TrackOutput.refreshed_host` hands it to the caller). Every
-tensor keeps a fixed shape, so the hot path can later be captured in a CUDA
-graph.
+tensor keeps a fixed shape, so on the card :data:`track_step_graphed`
+replays the tick around its PnP solve from captured CUDA graphs, which
+leaves the readback and the keyframe branch on the host.
 
 An external pose prediction (the IMU backend's) seeds KLT and PnP in place
 of the constant-velocity model. :func:`pack_ba_obs` and
@@ -48,6 +49,7 @@ keyframe signature to the host backends in the reference's layouts.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -55,7 +57,7 @@ import numpy as np
 import torch
 
 from thor_slam_tpu_torch.engine import epipolar, pnp, triangulate
-from thor_slam_tpu_torch.ops import brief, calib, fast, klt, match
+from thor_slam_tpu_torch.ops import brief, calib, fast, klt, match, patches_cuda
 from thor_slam_tpu_torch.ops import stereo as stereo_ops
 from thor_slam_tpu_torch.ops.image import downsample2, gaussian_blur, median3x3, upsample2
 from thor_slam_tpu_torch.ops.lie import se3_inverse
@@ -279,6 +281,14 @@ def track_step(
 ) -> tuple[TrackerState, TrackOutput]:
     """One VO tick.
 
+    The tick runs in four parts, each a function that
+    :data:`track_step_graphed` captures or calls in the same order: the
+    front segment (:func:`_front`), the RANSAC PnP solve (:func:`_solve`),
+    the back segment (:func:`_back`: the keyframe decision and the persist
+    branch's state and outputs), then the one readback of the decision and,
+    on a keyframe, the keyframe branch (:func:`_complete`). The spans
+    ``tracker.front`` and ``tracker.back`` say ``graph="eager"``.
+
     Args:
         params: Static configuration.
         setup: Per-camera constants (on the state's device).
@@ -305,6 +315,41 @@ def track_step(
     Returns:
         (new_state, output).
     """
+    with profiling.span("tracker.front", graph="eager"):
+        front = _front(params, setup, state, images, cam_active, pose_prediction, half_res)
+    result = _solve(params, state, front, uniforms, generator)
+    with profiling.span("tracker.back", graph="eager"):
+        back = _back(params, setup, state, front.hot, result, front.init_body_t_world, allow_refresh)
+    return _complete(params, setup, state, front, result, back, cam_active, allow_refresh)
+
+
+class FrontProducts(NamedTuple):
+    """The front segment's products: the prepared (C, S, H, W) float
+    images, the every-tick products, the PnP prior and the solve's
+    per-row inputs over the C*N slots."""
+
+    images: torch.Tensor
+    hot: HotProducts
+    init_body_t_world: torch.Tensor
+    pnp_valid: torch.Tensor
+    cam_rot: torch.Tensor
+    cam_trans: torch.Tensor
+    inlier_threshold: torch.Tensor
+
+
+def _front(
+    params: TrackerParams,
+    setup: CameraSetup,
+    state: TrackerState,
+    images: torch.Tensor,
+    cam_active: torch.Tensor | None,
+    pose_prediction: torch.Tensor | None,
+    half_res: bool,
+    gather=None,
+) -> FrontProducts:
+    """Every tick before the solve: normalization, upsampling, the median
+    prefilter, the KLT prediction, :func:`run_hot_frontend` (``gather`` as
+    :func:`klt.track_points_rig` takes it) and the PnP inputs."""
     p = params
     if images.dtype == torch.uint8:
         images = images.float() * (1.0 / 255.0)
@@ -325,45 +370,54 @@ def track_step(
         init_body_t_world = se3_inverse(klt_prediction)
     klt_body_t_world = se3_inverse(klt_prediction)
 
-    hot = run_hot_frontend(params, setup, state, images, klt_body_t_world)
+    hot = run_hot_frontend(params, setup, state, images, klt_body_t_world, gather=gather)
     if cam_active is not None:
         hot = hot._replace(
             corr_valid=hot.corr_valid & cam_active[:, None],
             tracks_valid=hot.tracks_valid & cam_active[:, None],
         )
 
-    c, n = p.num_cams, p.max_keypoints
+    n = p.max_keypoints
     # Pending slots are 2D only: no position to constrain the pose.
     pnp_valid = hot.corr_valid & ~state.lm_pending if p.mono_bootstrap else hot.corr_valid
-    # Normalized-coordinate inlier gate from the pixel budget (largest focal).
-    inlier_threshold = p.inlier_threshold_px / torch.amax(setup.k_left[:, 0])
+    return FrontProducts(
+        images=images,
+        hot=hot,
+        init_body_t_world=init_body_t_world,
+        pnp_valid=pnp_valid.reshape(-1),
+        cam_rot=setup.cam_r_body.repeat_interleave(n, 0),
+        cam_trans=setup.cam_t_body.repeat_interleave(n, 0),
+        # Normalized-coordinate inlier gate from the pixel budget (largest focal).
+        inlier_threshold=p.inlier_threshold_px / torch.amax(setup.k_left[:, 0]),
+    )
+
+
+def _solve(
+    params: TrackerParams,
+    state: TrackerState,
+    front: FrontProducts,
+    uniforms: torch.Tensor | None,
+    generator: torch.Generator | None,
+) -> pnp.PnPResult:
+    """The tick's RANSAC PnP (:data:`pnp.ransac_pnp_graphed`) in its span."""
+    p = params
+    c, n = p.num_cams, p.max_keypoints
     with profiling.span("tracker.pnp"):
-        result = pnp.ransac_pnp_graphed(
+        return pnp.ransac_pnp_graphed(
             state.lm_pos_w.reshape(c * n, 3),
-            hot.obs_norm.reshape(c * n, 2),
-            pnp_valid.reshape(c * n),
-            setup.cam_r_body.repeat_interleave(n, 0),
-            setup.cam_t_body.repeat_interleave(n, 0),
-            init_body_t_world,
+            front.hot.obs_norm.reshape(c * n, 2),
+            front.pnp_valid,
+            front.cam_rot,
+            front.cam_trans,
+            front.init_body_t_world,
             num_hypotheses=p.ransac_hypotheses,
             sample_size=p.ransac_sample_size,
-            inlier_threshold=inlier_threshold,
+            inlier_threshold=front.inlier_threshold,
             uniforms=uniforms,
             generator=generator,
             # Seeded mono slots carry their own weight; stereo slots are 1.
             obs_weight=state.lm_weight.reshape(c * n) if p.has_mono else None,
         )
-    return _finish_step(
-        params, setup, state, hot, images,
-        body_t_world=result.body_t_world,
-        num_inliers=result.num_inliers,
-        inliers_cn=result.inliers.reshape(c, n),
-        rms_error=result.rms_error,
-        init_body_t_world=init_body_t_world,
-        covariance=result.covariance,
-        cam_active=cam_active,
-        allow_refresh=allow_refresh,
-    )
 
 
 def run_hot_frontend(
@@ -372,8 +426,10 @@ def run_hot_frontend(
     state: TrackerState,
     images: torch.Tensor,
     klt_body_t_world: torch.Tensor,
+    gather=None,
 ) -> HotProducts:
-    """The every-tick path: left pyramid + KLT tracking of the landmark bank."""
+    """The every-tick path: left pyramid + KLT tracking of the landmark bank
+    (``gather``: KLT's patch gather, :func:`klt.track_points_rig`)."""
     p = params
     left = images[:, 0].contiguous()
     pred_r = torch.einsum("cij,jk->cik", setup.cam_r_body, klt_body_t_world[:3, :3])
@@ -394,7 +450,7 @@ def run_hot_frontend(
         state.lm_px, uv_pred,
         state.lm_valid & in_front,
         num_levels=p.klt_levels, radius=p.klt_radius, iters=p.klt_iters,
-        max_residual=p.klt_max_residual,
+        max_residual=p.klt_max_residual, gather=gather,
     )
     obs_norm = calib.raw_pixels_to_normalized(tracks.xy, setup.k_left, setup.dist_left)
     return HotProducts(
@@ -691,39 +747,25 @@ def mint_bank(
     )
 
 
-def _finish_step(
+class Decision(NamedTuple):
+    """The tick's acceptance and keyframe decision (:func:`_decide`)."""
+
+    tracked: torch.Tensor
+    world_t_body: torch.Tensor
+    untracked_streak: torch.Tensor
+    refresh_t: torch.Tensor
+
+
+def _decide(
     params: TrackerParams,
-    setup: CameraSetup,
     state: TrackerState,
     hot: HotProducts,
-    images: torch.Tensor,
     body_t_world: torch.Tensor,
     num_inliers: torch.Tensor,
-    inliers_cn: torch.Tensor,
-    rms_error: torch.Tensor,
     init_body_t_world: torch.Tensor,
-    covariance: torch.Tensor,
-    cam_active: torch.Tensor | None = None,
-    allow_refresh: bool = True,
-    fresh_id_base: torch.Tensor | None = None,
-    id_advance: int | None = None,
-    keyframe_minter=None,
-    refresh: bool | None = None,
-) -> tuple[TrackerState, TrackOutput]:
-    """Back half of a tick: acceptance, keyframe policy, state update.
-    ``allow_refresh=False`` (a light tick) neither refreshes nor restarts
-    and reads nothing back.
-
-    The sharded step (:mod:`thor_slam_tpu_torch.parallel.mesh`) calls this
-    once per shard, with the reference's three hooks: ``fresh_id_base``
-    (default ``lm_id_counter``) is where this shard's fresh ids start and
-    ``id_advance`` (default C * N) how far the replicated counter moves at
-    a keyframe, so that ids stay unique across camera shards;
-    ``keyframe_minter(world_t_body)`` replaces the whole keyframe branch
-    (slot sharding mints this shard's slots of a full-image detection).
-    ``refresh`` is the keyframe decision when the caller has read it
-    already (every shard decides alike): it is not read back again.
-    """
+    allow_refresh: bool,
+) -> Decision:
+    """Acceptance of the solve and the keyframe decision, on the device."""
     p = params
     tracked = num_inliers >= p.min_track_inliers
     body_t_world = torch.where(tracked, body_t_world, init_body_t_world)
@@ -754,46 +796,75 @@ def _finish_step(
         refresh_t = torch.zeros_like(refresh_t)
         restart = torch.zeros_like(restart)
     untracked_streak = torch.where(restart, 0, untracked_streak)
+    return Decision(tracked, world_t_body, untracked_streak, refresh_t)
 
-    c_, n_ = p.num_cams, p.max_keypoints
-    # A full tick's one readback: it selects the branch.
-    if refresh is None:
-        refresh = False
-        if allow_refresh:
-            with profiling.span("tracker.refresh_readback", kind="wait"):
-                refresh = bool(refresh_t)
-    if refresh and keyframe_minter is not None:
-        with profiling.span("tracker.keyframe"):
-            bank = keyframe_minter(world_t_body)
-    elif refresh:
-        with profiling.span("tracker.keyframe"):
-            kf = run_keyframe_frontend(p, setup, images)
-            base = state.lm_id_counter if fresh_id_base is None else fresh_id_base
-            fresh_ids = base + torch.arange(c_ * n_, dtype=torch.int32, device=state.lm_id.device).reshape(c_, n_)
-            bank = mint_bank(
-                p, setup, world_t_body, kf,
-                anchor_ok=hot.corr_valid & inliers_cn,  # trusted tracks
-                cand_tracks_xy=hot.tracks_xy,
-                cand_pos_w=state.lm_pos_w,
-                cand_id=state.lm_id,
-                fresh_ids=fresh_ids,
-                cam_active=cam_active,
-                cand_weight=state.lm_weight,
-                cand_pending=state.lm_pending if p.mono_bootstrap else None,
-                cand_anchor_px=state.lm_anchor_px if p.mono_bootstrap else None,
-                prev_kf_pose=state.kf_world_t_body,
-            )
-    else:  # landmarks persist, KLT anchors advance
-        bank = (
-            state.lm_pos_w, state.lm_desc, hot.corr_valid, hot.tracks_xy,
-            hot.tracks_xy, state.lm_robs_px, state.lm_robs_valid, state.lm_id,
-            state.lm_pending, state.lm_anchor_px, state.lm_weight,
+
+def _persist_bank(state: TrackerState, hot: HotProducts) -> tuple:
+    """No keyframe: the landmarks persist, the KLT anchors advance."""
+    return (
+        state.lm_pos_w, state.lm_desc, hot.corr_valid, hot.tracks_xy,
+        hot.tracks_xy, state.lm_robs_px, state.lm_robs_valid, state.lm_id,
+        state.lm_pending, state.lm_anchor_px, state.lm_weight,
+    )
+
+
+def _keyframe_bank(
+    params: TrackerParams,
+    setup: CameraSetup,
+    state: TrackerState,
+    hot: HotProducts,
+    images: torch.Tensor,
+    world_t_body: torch.Tensor,
+    inliers_cn: torch.Tensor,
+    cam_active: torch.Tensor | None,
+    fresh_id_base: torch.Tensor | None = None,
+    keyframe_minter=None,
+) -> tuple:
+    """The keyframe branch (span ``tracker.keyframe``): the front end and a
+    new bank, or ``keyframe_minter(world_t_body)``'s."""
+    p = params
+    c, n = p.num_cams, p.max_keypoints
+    with profiling.span("tracker.keyframe"):
+        if keyframe_minter is not None:
+            return keyframe_minter(world_t_body)
+        kf = run_keyframe_frontend(p, setup, images)
+        base = state.lm_id_counter if fresh_id_base is None else fresh_id_base
+        fresh_ids = base + torch.arange(c * n, dtype=torch.int32, device=state.lm_id.device).reshape(c, n)
+        return mint_bank(
+            p, setup, world_t_body, kf,
+            anchor_ok=hot.corr_valid & inliers_cn,  # trusted tracks
+            cand_tracks_xy=hot.tracks_xy,
+            cand_pos_w=state.lm_pos_w,
+            cand_id=state.lm_id,
+            fresh_ids=fresh_ids,
+            cam_active=cam_active,
+            cand_weight=state.lm_weight,
+            cand_pending=state.lm_pending if p.mono_bootstrap else None,
+            cand_anchor_px=state.lm_anchor_px if p.mono_bootstrap else None,
+            prev_kf_pose=state.kf_world_t_body,
         )
+
+
+def _tail(
+    params: TrackerParams,
+    setup: CameraSetup,
+    state: TrackerState,
+    hot: HotProducts,
+    decision: Decision,
+    bank: tuple,
+    num_inliers: torch.Tensor,
+    rms_error: torch.Tensor,
+    covariance: torch.Tensor,
+    refresh: bool,
+    id_advance: int | None = None,
+) -> tuple[TrackerState, TrackOutput]:
+    """The new state and the tick's outputs from the chosen bank."""
+    p = params
     (
         lm_pos_w, lm_desc, lm_valid, lm_px, lm_obs_px,
         lm_robs_px, lm_robs_valid, lm_id, lm_pending, lm_anchor_px, lm_weight,
     ) = bank
-
+    world_t_body = decision.world_t_body
     new_state = TrackerState(
         world_t_body=world_t_body,
         prev_world_t_body=state.world_t_body,
@@ -806,7 +877,7 @@ def _finish_step(
         lm_robs_px=lm_robs_px,
         lm_robs_valid=lm_robs_valid,
         lm_id=lm_id,
-        lm_id_counter=state.lm_id_counter + (c_ * n_ if id_advance is None else id_advance)
+        lm_id_counter=state.lm_id_counter + (p.num_cams * p.max_keypoints if id_advance is None else id_advance)
         if refresh
         else state.lm_id_counter,
         kf_world_t_body=world_t_body if refresh else state.kf_world_t_body,
@@ -814,7 +885,7 @@ def _finish_step(
         prev_left1=hot.cur_pyr1,
         prev_left2=hot.cur_pyr2,
         frame_idx=state.frame_idx + 1,
-        untracked_streak=untracked_streak,
+        untracked_streak=decision.untracked_streak,
         lm_pending=lm_pending,
         lm_anchor_px=lm_anchor_px,
         lm_weight=lm_weight,
@@ -828,7 +899,7 @@ def _finish_step(
     rot6[:3, :3] = r_wb
     rot6[3:, 3:] = r_wb
     big = torch.eye(6, dtype=r_wb.dtype, device=r_wb.device) * 1e6
-    cov_world = torch.where(tracked, rot6 @ covariance @ rot6.T, big)
+    cov_world = torch.where(decision.tracked, rot6 @ covariance @ rot6.T, big)
     # Pending slots are neither landmarks (the count) nor BA or loop
     # measurements (the valid mask) until promoted.
     lm_valid_out = lm_valid & ~lm_pending if p.mono_bootstrap else lm_valid
@@ -838,7 +909,7 @@ def _finish_step(
         num_matches=torch.sum(hot.corr_valid),
         num_landmarks=torch.sum(lm_valid_out),
         rms_error=rms_error,
-        refreshed=refresh_t,
+        refreshed=decision.refresh_t,
         covariance=cov_world,
         obs_norm=obs_norm_out,
         robs_norm=robs_norm_out,
@@ -848,6 +919,380 @@ def _finish_step(
         refreshed_host=refresh,
     )
     return new_state, output
+
+
+def _finish_step(
+    params: TrackerParams,
+    setup: CameraSetup,
+    state: TrackerState,
+    hot: HotProducts,
+    images: torch.Tensor,
+    body_t_world: torch.Tensor,
+    num_inliers: torch.Tensor,
+    inliers_cn: torch.Tensor,
+    rms_error: torch.Tensor,
+    init_body_t_world: torch.Tensor,
+    covariance: torch.Tensor,
+    cam_active: torch.Tensor | None = None,
+    allow_refresh: bool = True,
+    fresh_id_base: torch.Tensor | None = None,
+    id_advance: int | None = None,
+    keyframe_minter=None,
+    refresh: bool | None = None,
+) -> tuple[TrackerState, TrackOutput]:
+    """Back half of a tick for the sharded step: acceptance, keyframe
+    policy, state update, from the same parts as :func:`track_step`'s.
+    ``allow_refresh=False`` (a light tick) neither refreshes nor restarts
+    and reads nothing back.
+
+    The sharded step (:mod:`thor_slam_tpu_torch.parallel.mesh`) calls this
+    once per shard, with the reference's three hooks: ``fresh_id_base``
+    (default ``lm_id_counter``) is where this shard's fresh ids start and
+    ``id_advance`` (default C * N) how far the replicated counter moves at
+    a keyframe, so that ids stay unique across camera shards;
+    ``keyframe_minter(world_t_body)`` replaces the whole keyframe branch
+    (slot sharding mints this shard's slots of a full-image detection).
+    ``refresh`` is the keyframe decision when the caller has read it
+    already (every shard decides alike): it is not read back again.
+    """
+    decision = _decide(params, state, hot, body_t_world, num_inliers, init_body_t_world, allow_refresh)
+    if refresh is None:
+        refresh = _read_refresh(decision, allow_refresh)
+    bank = (
+        _keyframe_bank(params, setup, state, hot, images, decision.world_t_body, inliers_cn, cam_active,
+                       fresh_id_base, keyframe_minter)
+        if refresh
+        else _persist_bank(state, hot)
+    )
+    return _tail(params, setup, state, hot, decision, bank, num_inliers, rms_error, covariance, refresh, id_advance)
+
+
+def _read_refresh(decision: Decision, allow_refresh: bool) -> bool:
+    """A full tick's one readback: it selects the branch. A light tick
+    reads nothing."""
+    if not allow_refresh:
+        return False
+    with profiling.span("tracker.refresh_readback", kind="wait"):
+        return bool(decision.refresh_t)
+
+
+def _back(
+    params: TrackerParams,
+    setup: CameraSetup,
+    state: TrackerState,
+    hot: HotProducts,
+    result: pnp.PnPResult,
+    init_body_t_world: torch.Tensor,
+    allow_refresh: bool,
+) -> tuple[Decision, TrackerState, TrackOutput]:
+    """The back segment: the decision, and the new state and outputs of the
+    persist branch (a keyframe tick drops them)."""
+    decision = _decide(params, state, hot, result.body_t_world, result.num_inliers, init_body_t_world, allow_refresh)
+    new_state, output = _tail(
+        params, setup, state, hot, decision, _persist_bank(state, hot),
+        result.num_inliers, result.rms_error, result.covariance, refresh=False,
+    )
+    return decision, new_state, output
+
+
+def _complete(
+    params: TrackerParams,
+    setup: CameraSetup,
+    state: TrackerState,
+    front: FrontProducts,
+    result: pnp.PnPResult,
+    back: tuple[Decision, TrackerState, TrackOutput],
+    cam_active: torch.Tensor | None,
+    allow_refresh: bool,
+) -> tuple[TrackerState, TrackOutput]:
+    """After the back segment: the decision's readback (full ticks), and on
+    a keyframe the keyframe branch and the tail on its bank."""
+    decision, new_state, output = back
+    if not _read_refresh(decision, allow_refresh):
+        return new_state, output
+    c, n = params.num_cams, params.max_keypoints
+    bank = _keyframe_bank(
+        params, setup, state, front.hot, front.images, decision.world_t_body, result.inliers.reshape(c, n), cam_active
+    )
+    return _tail(
+        params, setup, state, front.hot, decision, bank,
+        result.num_inliers, result.rms_error, result.covariance, refresh=True,
+    )
+
+
+def _placeholder_gather(prev, cur, cam, centers, size):
+    """Zero windows and centres in the shapes of
+    :func:`patches_cuda.extract_patches_pair`'s, launching nothing: a
+    capture's warm-up run needs their shapes, not their values."""
+    m = centers.shape[1]
+    return (torch.zeros((2, m, size, size), dtype=torch.float32, device=cur.device),
+            torch.zeros((2, m, 2), dtype=torch.int32, device=cur.device))
+
+
+class _Chain:
+    """A function captured as CUDA graphs that replay in order, broken at
+    each patch gather it calls (KLT's :func:`patches_cuda.
+    extract_patches_pair`, one a pyramid level): the gather runs eagerly
+    between two graphs, on the same static tensors every call, and its
+    result is copied where the next graph reads it. So the hand-written
+    kernel's launcher runs on every tick, as in the eager tick, and its
+    launches are counted and measured the same way.
+
+    The function takes the gather as its one argument. Its first call
+    warms up on a side stream (zero windows, no launch), then captures
+    (``thread_local``: other threads keep working); each graph of the
+    chain allocates from one shared pool.
+    """
+
+    def __init__(self) -> None:
+        self.graphs: list[torch.cuda.CUDAGraph] = []
+        self.gathers: list[tuple[tuple, tuple]] = []  # (arguments, static outputs) after graph i
+        self.outputs = None
+        self._pool = None
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+        self.graphs.append(graph)
+
+    def _break(self, prev, cur, cam, centers, size):
+        """The gather's place in the capture: close the graph, keep the
+        arguments and static outputs for the replay, open the next."""
+        self.graphs[-1].capture_end()
+        static = _placeholder_gather(prev, cur, cam, centers, size)
+        self.gathers.append(((prev, cur, cam, centers, size), static))
+        self._begin()
+        return static
+
+    def capture(self, fn, device: torch.device) -> None:
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        self._pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            fn(_placeholder_gather)  # lazy handles and workspaces come up on this stream
+            side.synchronize()
+            self._begin()
+            try:
+                self.outputs = fn(self._break)
+            finally:
+                self.graphs[-1].capture_end()
+        current.wait_stream(side)
+
+    def replay(self, gather: bool = True):
+        """Replay the graphs in order; ``gather=False`` leaves the gathers'
+        outputs as they are (a dry run that launches no hand-written kernel)."""
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if gather and i < len(self.gathers):
+                args, static = self.gathers[i]
+                for dst, src in zip(static, patches_cuda.extract_patches_pair(*args)):
+                    dst.copy_(src)
+        return self.outputs
+
+
+def _flatten(tree) -> list[torch.Tensor]:
+    """The tensors of nested tuples (NamedTuples included)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _flatten(x)]
+    return []
+
+
+class _CapturedTick:
+    """One key's front and back segments (:class:`_Chain`) over static
+    buffers: the state, the camera constants, the images, the live
+    cameras, the pose prediction, and the solve's result for the back.
+    Every call copies all of them in; nothing is assumed to persist."""
+
+    def __init__(self, setup: CameraSetup, state: TrackerState, images: torch.Tensor,
+                 pose_prediction: torch.Tensor | None, num_cams: int) -> None:
+        dev = images.device
+        self.device = dev
+        self.setup = CameraSetup(*(torch.empty_like(t, device=dev) for t in setup))
+        self.state = TrackerState(*(torch.empty_like(t, device=dev) for t in state))
+        self.images = torch.empty_like(images)
+        self.cam_active = torch.empty(num_cams, dtype=torch.bool, device=dev)
+        self.pose_prediction = (
+            None if pose_prediction is None else torch.empty_like(pose_prediction, device=dev)
+        )
+        self.result: pnp.PnPResult | None = None
+        self.front, self.back = _Chain(), _Chain()
+        self.free: torch.cuda.Event | None = None  # recorded once the last call's outputs were cloned
+        #: Storages of every static buffer and graph output: what the caller never gets.
+        self._storages: set[int] = set()
+        self._keep(self.setup, self.state, self.images, self.cam_active, self.pose_prediction)
+
+    def _keep(self, *trees) -> None:
+        self._storages |= {t.untyped_storage().data_ptr() for t in _flatten(trees)}
+
+    def load(self, setup, state, images, cam_active, pose_prediction) -> None:
+        """This call's inputs into the static buffers, on the current stream;
+        host tensors (the live cameras, the prediction) from pinned memory
+        without a wait."""
+        if self.free is not None:  # the last call's clones, on whichever stream it came
+            torch.cuda.current_stream(self.device).wait_event(self.free)
+        for name, dst, src in zip(TrackerState._fields, self.state, state):
+            if dst.shape != src.shape or dst.dtype != src.dtype:
+                raise ValueError(f"state.{name} must be {tuple(dst.shape)} {dst.dtype}, "
+                                 f"got {tuple(src.shape)} {src.dtype}")
+            dst.copy_(src)
+        for dst, src in zip(self.setup, setup):
+            dst.copy_(src)
+        self.images.copy_(images)
+        if cam_active is None:
+            self.cam_active.fill_(True)
+        else:
+            self.cam_active.copy_(cam_active, non_blocking=True)
+        if pose_prediction is not None:
+            self.pose_prediction.copy_(pose_prediction, non_blocking=True)
+
+    def load_result(self, result: pnp.PnPResult) -> None:
+        if self.result is None:
+            self.result = pnp.PnPResult(*(torch.empty_like(t) for t in result))
+            self._keep(self.result)
+        for dst, src in zip(self.result, result):
+            dst.copy_(src)
+
+    def run(self, chain: _Chain, fn, live: bool) -> str:
+        """Replay ``chain`` (dry unless ``live``), capturing it first on its
+        key's first call; returns the mode for the span."""
+        mode = "replay"
+        if not chain.graphs:
+            chain.capture(fn, self.device)
+            self._keep(chain.outputs, *(static for _, static in chain.gathers))
+            mode = "capture"
+        chain.replay(gather=live)
+        return mode
+
+    def own(self, tree, state: TrackerState, result: pnp.PnPResult):
+        """``tree`` as the caller may keep it: a static input buffer becomes
+        the caller's own tensor (what the eager tick hands back), anything
+        in the graphs' memory a clone (one per tensor, so aliases stay
+        aliases), anything else (the keyframe branch's) itself."""
+        callers = {id(b): t for b, t in zip(self.state, state)}
+        callers.update({id(b): t for b, t in zip(self.result, result)})
+        clones: dict[int, torch.Tensor] = {}
+
+        def own(t):
+            if id(t) in callers:
+                return callers[id(t)]
+            if t.untyped_storage().data_ptr() not in self._storages:
+                return t
+            if id(t) not in clones:
+                clones[id(t)] = t.clone()
+            return clones[id(t)]
+
+        owned = tuple(type(x)(*(own(t) if isinstance(t, torch.Tensor) else t for t in x)) for x in tree)
+        if self.free is None:
+            self.free = torch.cuda.Event()
+        self.free.record(torch.cuda.current_stream(self.device))
+        return owned
+
+
+class GraphedTrackStep:
+    """:func:`track_step` replayed from CUDA graphs, one set per key.
+
+    Called as :func:`track_step` is, and with its results: the graphs
+    replay the same kernels on the same numbers. Per tick: the front
+    segment (:func:`_front`, three graphs with KLT's two patch gathers
+    launched between them), the PnP solve as :func:`track_step` calls it
+    (:data:`pnp.ransac_pnp_graphed`, its draws taken outside any graph),
+    the back segment (:func:`_back`, one graph), then, on a full tick, the
+    one readback of the keyframe decision; a keyframe tick runs the
+    keyframe branch and the tail eagerly, as :func:`track_step` does, and
+    drops the back segment's persist products.
+
+    The key is everything that shapes the captured work: the device,
+    ``params``, the images' shape and dtype, ``half_res``,
+    ``allow_refresh`` and the prediction's shape and dtype (or none).
+    ``cam_active`` is not: a tick without one runs with every camera live,
+    the same numbers. ``cam_active`` and ``pose_prediction`` may be host
+    tensors (pinned: copied without a wait). The first call of a key
+    captures its graphs; every call, that one too, replays them. The state
+    is copied in on every call, and what the caller gets back is its own
+    tensors or clones, never a graph's buffer. CPU images take
+    :func:`track_step` itself. The spans ``tracker.front`` and
+    ``tracker.back`` get ``graph``: ``"capture"``, ``"replay"`` or
+    ``"eager"``.
+    """
+
+    def __init__(self) -> None:
+        self._ticks: dict[tuple, _CapturedTick] = {}
+        self._lock = threading.Lock()
+        self.captures = 0
+
+    def __call__(
+        self,
+        params: TrackerParams,
+        setup: CameraSetup,
+        state: TrackerState,
+        images: torch.Tensor,
+        uniforms: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        cam_active: torch.Tensor | None = None,
+        pose_prediction: torch.Tensor | None = None,
+        allow_refresh: bool = True,
+        half_res: bool = False,
+    ) -> tuple[TrackerState, TrackOutput]:
+        if images.device.type != "cuda":
+            return track_step(
+                params, setup, state, images, uniforms=uniforms, generator=generator, cam_active=cam_active,
+                pose_prediction=pose_prediction, allow_refresh=allow_refresh, half_res=half_res,
+            )
+        return self._tick(params, setup, state, images, uniforms, generator, cam_active, pose_prediction,
+                          allow_refresh, half_res, live=True)
+
+    def capture(self, params, setup, state, images, generator=None, pose_prediction=None, allow_refresh=True,
+                half_res=False) -> None:
+        """Capture the graphs of the key these arguments (as
+        :meth:`__call__` takes them) select, if not yet captured, by one dry
+        tick: the graphs replay once, but no hand-written kernel launches,
+        nothing is read back and the keyframe branch does not run. CPU
+        images have no graphs."""
+        if images.device.type != "cuda":
+            return
+        self._tick(params, setup, state, images, None, generator, None, pose_prediction, allow_refresh,
+                   half_res, live=False)
+
+    def _tick(self, params, setup, state, images, uniforms, generator, cam_active, pose_prediction,
+              allow_refresh, half_res, live):
+        pred_key = None if pose_prediction is None else (tuple(pose_prediction.shape), pose_prediction.dtype)
+        key = (images.device, params, tuple(images.shape), images.dtype, half_res, allow_refresh, pred_key)
+        with self._lock:
+            entry = self._ticks.get(key)
+            fresh = entry is None
+            if fresh:  # kept once both segments are captured
+                entry = _CapturedTick(setup, state, images, pose_prediction, params.num_cams)
+            with profiling.span("tracker.front"):
+                entry.load(setup, state, images, cam_active, pose_prediction)
+                profiling.annotate(graph=entry.run(entry.front, lambda gather: _front(
+                    params, entry.setup, entry.state, entry.images, entry.cam_active, entry.pose_prediction,
+                    half_res, gather=gather,
+                ), live))
+            front = entry.front.outputs
+            result = _solve(params, state, front, uniforms, generator)
+            with profiling.span("tracker.back"):
+                entry.load_result(result)
+                profiling.annotate(graph=entry.run(entry.back, lambda gather: _back(
+                    params, entry.setup, entry.state, front.hot, entry.result, front.init_body_t_world,
+                    allow_refresh,
+                ), live))
+            if fresh:
+                self._ticks[key] = entry
+                self.captures += 1
+            if not live:
+                return None
+            done = _complete(params, setup, state, front, result, entry.back.outputs, entry.cam_active,
+                             allow_refresh)
+            return entry.own(done, state, result)
+
+
+#: The tracker's tick on the card (the engine's single-device path and the
+#: benchmark loops); the sharded step, the parity tests and the per-stage
+#: tools call :func:`track_step` itself.
+track_step_graphed = GraphedTrackStep()
 
 
 #: Length of the packed result of :func:`mono_init`.

@@ -8,6 +8,10 @@ fractional offset is a contraction of one-hot-lerp weights with those
 views. The reference's ``(M, K^2, P^2)`` view algebra and the ``vproj``
 projection are kept so the numbers follow it; the TPU-only
 ``optimization_barrier`` is gone (PyTorch runs eagerly).
+
+Nothing here copies from the host, so the whole tracker can be captured in
+a CUDA graph; the gather is a parameter (``gather``), so that a capture can
+run it between its graphs.
 """
 
 from __future__ import annotations
@@ -34,16 +38,19 @@ class TrackResult(NamedTuple):
 
 
 def _extract_windows(
-    prev: torch.Tensor, cur: torch.Tensor, cam: torch.Tensor, centers: torch.Tensor, wr: int
+    prev: torch.Tensor, cur: torch.Tensor, cam: torch.Tensor, centers: torch.Tensor, wr: int, gather=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Windows of both frames of a level: (2, M, S, S) at the clipped integer
-    centres, and the (2, M, 2) clipped centres, from one gather launch.
+    centres, and the (2, M, 2) clipped centres, from one gather launch
+    (``gather``, called as :func:`patches_cuda.extract_patches_pair`, its
+    default).
 
     ``centers`` is (2, M, 2) int32: row 0 in ``prev``, row 1 in ``cur``. The
     gather clips them to [wr, W-wr-1] x [wr, H-wr-1] itself (the reference
     clamps them in tensor code before its gather) and returns what it used.
     """
-    return patches_cuda.extract_patches_pair(prev, cur, cam, centers, 2 * wr + 1)
+    gather = patches_cuda.extract_patches_pair if gather is None else gather
+    return gather(prev, cur, cam, centers, 2 * wr + 1)
 
 
 def _shifted_views(win: torch.Tensor, radius: int, m: int) -> torch.Tensor:
@@ -94,12 +101,13 @@ def _lk_level(
     radius: int,
     iters: int,
     m: int,
+    gather,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Inverse-compositional LK at one level, flat over all M rig tracks."""
     wr = radius + m + 1
     n = pts_prev.shape[0]
     centers = torch.round(torch.stack([pts_prev, pts_cur])).int()
-    win, ctr = _extract_windows(prev, cur, cam, centers, wr)
+    win, ctr = _extract_windows(prev, cur, cam, centers, wr, gather)
     views = _shifted_views(win.reshape(2 * n, *win.shape[2:]), radius, m)  # both frames, one copy
     views_p, views_c = views[:n], views[n:]
     cp, cc = ctr.float().unbind(0)
@@ -108,8 +116,7 @@ def _lk_level(
     # Template + central-difference gradients at the previous position: all
     # five samples in one (M, 5, K^2) x (M, K^2, P^2) contraction.
     d_t = torch.clamp(pts_prev - cp, -1.0, 1.0)
-    ex = d_t.new_tensor([1.0, 0.0])
-    ey = d_t.new_tensor([0.0, 1.0])
+    ex, ey = torch.eye(2, dtype=d_t.dtype, device=d_t.device)  # unit offsets, made on the device
     w5 = torch.stack([_interp_weights(d_t + o, m) for o in (0.0, ex, -ex, ey, -ey)], 1)
     tp = torch.bmm(w5, views_p)  # (M, 5, P^2)
     t = tp[:, 0]
@@ -166,6 +173,7 @@ def track_points_rig(
     max_residual: float = 0.08,
     border: int = 4,
     search: int = 4,
+    gather=None,
 ) -> TrackResult:
     """Track all rig points from the previous frame into the current one.
 
@@ -182,6 +190,7 @@ def track_points_rig(
         border: Reject tracks closer than this to the border (at least the
             level-0 window radius).
         search: Per-level search half-range m in pixels.
+        gather: The windows' patch gather (:func:`_extract_windows`).
     """
     c, n = pts_prev.shape[:2]
     cam = torch.arange(c, dtype=torch.int32, device=pts_prev.device).repeat_interleave(n)
@@ -191,7 +200,7 @@ def track_points_rig(
     for lvl in range(num_levels - 1, -1, -1):
         s = 2.0**lvl
         xy, resid = _lk_level(
-            prev_pyramid[lvl], cur_pyramid[lvl], cam, pts_prev / s, xy, radius, iters, search
+            prev_pyramid[lvl], cur_pyramid[lvl], cam, pts_prev / s, xy, radius, iters, search, gather
         )
         if lvl > 0:
             xy = xy * 2.0
