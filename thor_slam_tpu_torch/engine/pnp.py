@@ -18,13 +18,12 @@ optional ``uniforms`` tensor and otherwise draws them from a caller-owned
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import torch
 
 from thor_slam_tpu_torch.ops import lie, linalg
-from thor_slam_tpu_torch.utils import profiling
+from thor_slam_tpu_torch.utils import cuda_graph, profiling
 
 
 class PnPResult(NamedTuple):
@@ -278,92 +277,17 @@ def ransac_pnp(
     )
 
 
-class _CapturedPnP:
-    """One :func:`ransac_pnp` captured in a CUDA graph over static buffers.
+class GraphedRansacPnP(cuda_graph.GraphCache):
+    """:func:`ransac_pnp` replayed from CUDA graphs
+    (:mod:`thor_slam_tpu_torch.utils.cuda_graph`), one graph per key.
 
-    Each call copies its tensors into the buffers, draws (or copies) the
-    hypothesis uniforms into theirs outside the graph, replays, and clones
-    the outputs: a result the caller holds is never overwritten by the
-    next replay.
+    Called as :func:`ransac_pnp` is, and with its result, cloned out of
+    the graph. The draws come from ``generator`` into the static
+    ``uniforms`` outside the graph, as the eager call takes them. The key
+    is device, N, ``num_hypotheses``, ``sample_size``, ``hyp_iters``,
+    ``refine_iters``, dtype and whether ``obs_weight`` is given. The open
+    span gets ``graph``: ``"capture"``, ``"replay"`` or ``"eager"``.
     """
-
-    def __init__(self, inputs: dict, num_hypotheses: int, sample_size: int, hyp_iters: int, refine_iters: int):
-        points_w = inputs["points_w"]
-        self.device = points_w.device
-        self.inputs = {name: torch.empty_like(t) for name, t in inputs.items()}
-        self.threshold = torch.empty((), dtype=points_w.dtype, device=self.device)
-        self.uniforms = torch.empty((num_hypotheses, points_w.shape[0]), dtype=points_w.dtype, device=self.device)
-        self.static_args = dict(num_hypotheses=num_hypotheses, sample_size=sample_size, hyp_iters=hyp_iters,
-                                refine_iters=refine_iters)
-        self.graph: torch.cuda.CUDAGraph | None = None
-        self.outputs: PnPResult | None = None
-        self.free: torch.cuda.Event | None = None  # recorded once the last call's outputs were cloned
-
-    def load(self, inputs: dict, inlier_threshold, uniforms, generator) -> None:
-        """This call's inputs into the static buffers, on the current stream."""
-        if self.free is not None:  # the last call's clones, on whichever stream it came
-            torch.cuda.current_stream(self.device).wait_event(self.free)
-        for name, t in inputs.items():
-            self.inputs[name].copy_(t)
-        if isinstance(inlier_threshold, torch.Tensor) and inlier_threshold.device == self.device:
-            self.threshold.copy_(inlier_threshold)
-        else:  # a number, or a CPU 0-dim tensor (read on the host)
-            self.threshold.fill_(inlier_threshold)
-        if uniforms is None:  # the generator advances as the eager draw advances it
-            torch.rand(self.uniforms.shape, generator=generator, out=self.uniforms)
-        else:
-            if uniforms.shape != self.uniforms.shape or uniforms.dtype != self.uniforms.dtype:
-                raise ValueError(f"uniforms must be {tuple(self.uniforms.shape)} {self.uniforms.dtype}, "
-                                 f"got {tuple(uniforms.shape)} {uniforms.dtype}")
-            self.uniforms.copy_(uniforms)
-
-    def _solve(self) -> PnPResult:
-        return ransac_pnp(**self.inputs, inlier_threshold=self.threshold, uniforms=self.uniforms,
-                          **self.static_args)
-
-    def capture(self) -> None:
-        """One eager run on a side stream (lazy handles and workspaces come
-        up there), then the capture. ``thread_local``: the uploader's thread
-        keeps staging and copying meanwhile. A failed capture raises."""
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.device(self.device):
-            with torch.cuda.stream(side):
-                self._solve()
-            current.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self.outputs = self._solve()
-        self.graph = graph
-
-    def replay(self) -> PnPResult:
-        self.graph.replay()
-        result = PnPResult(*(t.clone() for t in self.outputs))
-        if self.free is None:
-            self.free = torch.cuda.Event()
-        self.free.record(torch.cuda.current_stream(self.device))
-        return result
-
-
-class GraphedRansacPnP:
-    """:func:`ransac_pnp` replayed from CUDA graphs, one graph per key.
-
-    Called as :func:`ransac_pnp` is, and with its result: the graph
-    replays the same kernels on the same numbers, and the draws come from
-    ``generator`` as the eager call takes them. The key is everything that
-    shapes the captured work: device, N, ``num_hypotheses``,
-    ``sample_size``, ``hyp_iters``, ``refine_iters``, dtype and whether
-    ``obs_weight`` is given. The first call of a key captures its graph;
-    every call, that one too, replays it. CPU tensors take the eager
-    function. The open span gets ``graph``: ``"capture"``, ``"replay"`` or
-    ``"eager"``.
-    """
-
-    def __init__(self) -> None:
-        self._graphs: dict[tuple, _CapturedPnP] = {}
-        self._lock = threading.Lock()
-        self.captures = 0
 
     def __call__(
         self,
@@ -382,32 +306,33 @@ class GraphedRansacPnP:
         generator: torch.Generator | None = None,
         obs_weight: torch.Tensor | None = None,
     ) -> PnPResult:
-        if points_w.device.type != "cuda":
-            profiling.annotate(graph="eager")
-            return ransac_pnp(
-                points_w, obs, valid, cam_rot, cam_trans, init_body_t_world, num_hypotheses=num_hypotheses,
-                sample_size=sample_size, hyp_iters=hyp_iters, refine_iters=refine_iters,
-                inlier_threshold=inlier_threshold, uniforms=uniforms, generator=generator, obs_weight=obs_weight,
-            )
+        dev, n = points_w.device, points_w.shape[0]
+        static_args = dict(num_hypotheses=num_hypotheses, sample_size=sample_size, hyp_iters=hyp_iters,
+                           refine_iters=refine_iters)
+        if not (isinstance(inlier_threshold, torch.Tensor) and inlier_threshold.device == dev):
+            inlier_threshold = float(inlier_threshold)  # a number, or a CPU 0-dim tensor (read on the host)
         inputs = dict(points_w=points_w, obs=obs, valid=valid, cam_rot=cam_rot, cam_trans=cam_trans,
-                      init_body_t_world=init_body_t_world)
-        if obs_weight is not None:
-            inputs["obs_weight"] = obs_weight
-        key = (points_w.device, points_w.shape[0], num_hypotheses, sample_size, hyp_iters, refine_iters,
-               points_w.dtype, obs_weight is not None)
-        with self._lock:
-            entry = self._graphs.get(key)
-            if entry is None:
-                entry = _CapturedPnP(inputs, num_hypotheses, sample_size, hyp_iters, refine_iters)
-            entry.load(inputs, inlier_threshold, uniforms, generator)
-            mode = "replay"
-            if entry.graph is None:
-                entry.capture()
-                self._graphs[key] = entry
-                self.captures += 1
-                mode = "capture"
-            profiling.annotate(graph=mode)
-            return entry.replay()
+                      init_body_t_world=init_body_t_world, obs_weight=obs_weight,
+                      inlier_threshold=inlier_threshold, uniforms=uniforms)
+
+        def eager() -> PnPResult:
+            profiling.annotate(graph="eager")
+            return ransac_pnp(**inputs, generator=generator, **static_args)
+
+        def make() -> cuda_graph.Captured:
+            return cuda_graph.Captured(dev, {**inputs, "inlier_threshold": points_w.new_empty(()),
+                                             "uniforms": points_w.new_empty((num_hypotheses, n))})
+
+        def replay(entry: cuda_graph.Captured) -> PnPResult:
+            static = entry.load("inputs", inputs)
+            if uniforms is None:  # the generator advances as the eager draw advances it
+                torch.rand(static["uniforms"].shape, generator=generator, out=static["uniforms"])
+            chain = entry.chains[0]
+            profiling.annotate(graph=entry.run(chain, lambda _: ransac_pnp(**static, **static_args)))
+            return entry.own(chain.outputs)
+
+        key = (dev, n, num_hypotheses, sample_size, hyp_iters, refine_iters, points_w.dtype, obs_weight is not None)
+        return self.dispatch(key, dev, eager, make, replay)
 
 
 #: The tracker's solve (``track_step``); loop verification and the sharded

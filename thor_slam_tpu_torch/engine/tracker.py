@@ -49,7 +49,6 @@ keyframe signature to the host backends in the reference's layouts.
 
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -61,7 +60,7 @@ from thor_slam_tpu_torch.ops import brief, calib, fast, klt, match, patches_cuda
 from thor_slam_tpu_torch.ops import stereo as stereo_ops
 from thor_slam_tpu_torch.ops.image import downsample2, gaussian_blur, median3x3, upsample2
 from thor_slam_tpu_torch.ops.lie import se3_inverse
-from thor_slam_tpu_torch.utils import profiling
+from thor_slam_tpu_torch.utils import cuda_graph, profiling
 
 
 @dataclass(frozen=True)
@@ -1029,199 +1028,28 @@ def _placeholder_gather(prev, cur, cam, centers, size):
             torch.zeros((2, m, 2), dtype=torch.int32, device=cur.device))
 
 
-class _Chain:
-    """A function captured as CUDA graphs that replay in order, broken at
-    each patch gather it calls (KLT's :func:`patches_cuda.
-    extract_patches_pair`, one a pyramid level): the gather runs eagerly
-    between two graphs, on the same static tensors every call, and its
-    result is copied where the next graph reads it. So the hand-written
-    kernel's launcher runs on every tick, as in the eager tick, and its
-    launches are counted and measured the same way.
+class GraphedTrackStep(cuda_graph.GraphCache):
+    """:func:`track_step` replayed from CUDA graphs
+    (:mod:`thor_slam_tpu_torch.utils.cuda_graph`), one set per key.
 
-    The function takes the gather as its one argument. Its first call
-    warms up on a side stream (zero windows, no launch), then captures
-    (``thread_local``: other threads keep working); each graph of the
-    chain allocates from one shared pool.
-    """
-
-    def __init__(self) -> None:
-        self.graphs: list[torch.cuda.CUDAGraph] = []
-        self.gathers: list[tuple[tuple, tuple]] = []  # (arguments, static outputs) after graph i
-        self.outputs = None
-        self._pool = None
-
-    def _begin(self) -> None:
-        graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-        self.graphs.append(graph)
-
-    def _break(self, prev, cur, cam, centers, size):
-        """The gather's place in the capture: close the graph, keep the
-        arguments and static outputs for the replay, open the next."""
-        self.graphs[-1].capture_end()
-        static = _placeholder_gather(prev, cur, cam, centers, size)
-        self.gathers.append(((prev, cur, cam, centers, size), static))
-        self._begin()
-        return static
-
-    def capture(self, fn, device: torch.device) -> None:
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        self._pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.device(device), torch.cuda.stream(side):
-            fn(_placeholder_gather)  # lazy handles and workspaces come up on this stream
-            side.synchronize()
-            self._begin()
-            try:
-                self.outputs = fn(self._break)
-            finally:
-                self.graphs[-1].capture_end()
-        current.wait_stream(side)
-
-    def replay(self, gather: bool = True):
-        """Replay the graphs in order; ``gather=False`` leaves the gathers'
-        outputs as they are (a dry run that launches no hand-written kernel)."""
-        for i, graph in enumerate(self.graphs):
-            graph.replay()
-            if gather and i < len(self.gathers):
-                args, static = self.gathers[i]
-                for dst, src in zip(static, patches_cuda.extract_patches_pair(*args)):
-                    dst.copy_(src)
-        return self.outputs
-
-
-def _flatten(tree) -> list[torch.Tensor]:
-    """The tensors of nested tuples (NamedTuples included)."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, tuple):
-        return [t for x in tree for t in _flatten(x)]
-    return []
-
-
-class _CapturedTick:
-    """One key's front and back segments (:class:`_Chain`) over static
-    buffers: the state, the camera constants, the images, the live
-    cameras, the pose prediction, and the solve's result for the back.
-    Every call copies all of them in; nothing is assumed to persist."""
-
-    def __init__(self, setup: CameraSetup, state: TrackerState, images: torch.Tensor,
-                 pose_prediction: torch.Tensor | None, num_cams: int) -> None:
-        dev = images.device
-        self.device = dev
-        self.setup = CameraSetup(*(torch.empty_like(t, device=dev) for t in setup))
-        self.state = TrackerState(*(torch.empty_like(t, device=dev) for t in state))
-        self.images = torch.empty_like(images)
-        self.cam_active = torch.empty(num_cams, dtype=torch.bool, device=dev)
-        self.pose_prediction = (
-            None if pose_prediction is None else torch.empty_like(pose_prediction, device=dev)
-        )
-        self.result: pnp.PnPResult | None = None
-        self.front, self.back = _Chain(), _Chain()
-        self.free: torch.cuda.Event | None = None  # recorded once the last call's outputs were cloned
-        #: Storages of every static buffer and graph output: what the caller never gets.
-        self._storages: set[int] = set()
-        self._keep(self.setup, self.state, self.images, self.cam_active, self.pose_prediction)
-
-    def _keep(self, *trees) -> None:
-        self._storages |= {t.untyped_storage().data_ptr() for t in _flatten(trees)}
-
-    def load(self, setup, state, images, cam_active, pose_prediction) -> None:
-        """This call's inputs into the static buffers, on the current stream;
-        host tensors (the live cameras, the prediction) from pinned memory
-        without a wait."""
-        if self.free is not None:  # the last call's clones, on whichever stream it came
-            torch.cuda.current_stream(self.device).wait_event(self.free)
-        for name, dst, src in zip(TrackerState._fields, self.state, state):
-            if dst.shape != src.shape or dst.dtype != src.dtype:
-                raise ValueError(f"state.{name} must be {tuple(dst.shape)} {dst.dtype}, "
-                                 f"got {tuple(src.shape)} {src.dtype}")
-            dst.copy_(src)
-        for dst, src in zip(self.setup, setup):
-            dst.copy_(src)
-        self.images.copy_(images)
-        if cam_active is None:
-            self.cam_active.fill_(True)
-        else:
-            self.cam_active.copy_(cam_active, non_blocking=True)
-        if pose_prediction is not None:
-            self.pose_prediction.copy_(pose_prediction, non_blocking=True)
-
-    def load_result(self, result: pnp.PnPResult) -> None:
-        if self.result is None:
-            self.result = pnp.PnPResult(*(torch.empty_like(t) for t in result))
-            self._keep(self.result)
-        for dst, src in zip(self.result, result):
-            dst.copy_(src)
-
-    def run(self, chain: _Chain, fn, live: bool) -> str:
-        """Replay ``chain`` (dry unless ``live``), capturing it first on its
-        key's first call; returns the mode for the span."""
-        mode = "replay"
-        if not chain.graphs:
-            chain.capture(fn, self.device)
-            self._keep(chain.outputs, *(static for _, static in chain.gathers))
-            mode = "capture"
-        chain.replay(gather=live)
-        return mode
-
-    def own(self, tree, state: TrackerState, result: pnp.PnPResult):
-        """``tree`` as the caller may keep it: a static input buffer becomes
-        the caller's own tensor (what the eager tick hands back), anything
-        in the graphs' memory a clone (one per tensor, so aliases stay
-        aliases), anything else (the keyframe branch's) itself."""
-        callers = {id(b): t for b, t in zip(self.state, state)}
-        callers.update({id(b): t for b, t in zip(self.result, result)})
-        clones: dict[int, torch.Tensor] = {}
-
-        def own(t):
-            if id(t) in callers:
-                return callers[id(t)]
-            if t.untyped_storage().data_ptr() not in self._storages:
-                return t
-            if id(t) not in clones:
-                clones[id(t)] = t.clone()
-            return clones[id(t)]
-
-        owned = tuple(type(x)(*(own(t) if isinstance(t, torch.Tensor) else t for t in x)) for x in tree)
-        if self.free is None:
-            self.free = torch.cuda.Event()
-        self.free.record(torch.cuda.current_stream(self.device))
-        return owned
-
-
-class GraphedTrackStep:
-    """:func:`track_step` replayed from CUDA graphs, one set per key.
-
-    Called as :func:`track_step` is, and with its results: the graphs
-    replay the same kernels on the same numbers. Per tick: the front
+    Called as :func:`track_step` is, and with its results: the caller gets
+    its own tensors or clones, never a graph's buffer. Per tick: the front
     segment (:func:`_front`, three graphs with KLT's two patch gathers
     launched between them), the PnP solve as :func:`track_step` calls it
-    (:data:`pnp.ransac_pnp_graphed`, its draws taken outside any graph),
-    the back segment (:func:`_back`, one graph), then, on a full tick, the
-    one readback of the keyframe decision; a keyframe tick runs the
-    keyframe branch and the tail eagerly, as :func:`track_step` does, and
-    drops the back segment's persist products.
+    (:data:`pnp.ransac_pnp_graphed`), the back segment (:func:`_back`, one
+    graph, reading the solve's result from its own static buffers), then,
+    on a full tick, the one readback of the keyframe decision; a keyframe
+    tick runs the keyframe branch and the tail eagerly, as
+    :func:`track_step` does, and drops the back segment's persist products.
 
-    The key is everything that shapes the captured work: the device,
-    ``params``, the images' shape and dtype, ``half_res``,
-    ``allow_refresh`` and the prediction's shape and dtype (or none).
-    ``cam_active`` is not: a tick without one runs with every camera live,
-    the same numbers. ``cam_active`` and ``pose_prediction`` may be host
-    tensors (pinned: copied without a wait). The first call of a key
-    captures its graphs; every call, that one too, replays them. The state
-    is copied in on every call, and what the caller gets back is its own
-    tensors or clones, never a graph's buffer. CPU images take
-    :func:`track_step` itself. The spans ``tracker.front`` and
-    ``tracker.back`` get ``graph``: ``"capture"``, ``"replay"`` or
-    ``"eager"``.
+    The key is the device, ``params``, the images' shape and dtype,
+    ``half_res``, ``allow_refresh`` and the prediction's shape and dtype
+    (or none). ``cam_active`` is not: a tick without one runs with every
+    camera live, the same numbers. ``cam_active`` and ``pose_prediction``
+    may be host tensors (pinned: copied without a wait). The spans
+    ``tracker.front`` and ``tracker.back`` get ``graph``: ``"capture"``,
+    ``"replay"`` or ``"eager"``.
     """
-
-    def __init__(self) -> None:
-        self._ticks: dict[tuple, _CapturedTick] = {}
-        self._lock = threading.Lock()
-        self.captures = 0
 
     def __call__(
         self,
@@ -1236,11 +1064,6 @@ class GraphedTrackStep:
         allow_refresh: bool = True,
         half_res: bool = False,
     ) -> tuple[TrackerState, TrackOutput]:
-        if images.device.type != "cuda":
-            return track_step(
-                params, setup, state, images, uniforms=uniforms, generator=generator, cam_active=cam_active,
-                pose_prediction=pose_prediction, allow_refresh=allow_refresh, half_res=half_res,
-            )
         return self._tick(params, setup, state, images, uniforms, generator, cam_active, pose_prediction,
                           allow_refresh, half_res, live=True)
 
@@ -1251,42 +1074,51 @@ class GraphedTrackStep:
         tick: the graphs replay once, but no hand-written kernel launches,
         nothing is read back and the keyframe branch does not run. CPU
         images have no graphs."""
-        if images.device.type != "cuda":
-            return
         self._tick(params, setup, state, images, None, generator, None, pose_prediction, allow_refresh,
                    half_res, live=False)
 
     def _tick(self, params, setup, state, images, uniforms, generator, cam_active, pose_prediction,
               allow_refresh, half_res, live):
-        pred_key = None if pose_prediction is None else (tuple(pose_prediction.shape), pose_prediction.dtype)
-        key = (images.device, params, tuple(images.shape), images.dtype, half_res, allow_refresh, pred_key)
-        with self._lock:
-            entry = self._ticks.get(key)
-            fresh = entry is None
-            if fresh:  # kept once both segments are captured
-                entry = _CapturedTick(setup, state, images, pose_prediction, params.num_cams)
-            with profiling.span("tracker.front"):
-                entry.load(setup, state, images, cam_active, pose_prediction)
-                profiling.annotate(graph=entry.run(entry.front, lambda gather: _front(
-                    params, entry.setup, entry.state, entry.images, entry.cam_active, entry.pose_prediction,
-                    half_res, gather=gather,
-                ), live))
-            front = entry.front.outputs
-            result = _solve(params, state, front, uniforms, generator)
-            with profiling.span("tracker.back"):
-                entry.load_result(result)
-                profiling.annotate(graph=entry.run(entry.back, lambda gather: _back(
-                    params, entry.setup, entry.state, front.hot, entry.result, front.init_body_t_world,
-                    allow_refresh,
-                ), live))
-            if fresh:
-                self._ticks[key] = entry
-                self.captures += 1
+        inputs = dict(setup=setup, state=state, images=images, cam_active=True if cam_active is None else cam_active,
+                      pose_prediction=pose_prediction)
+
+        def eager():
             if not live:
                 return None
-            done = _complete(params, setup, state, front, result, entry.back.outputs, entry.cam_active,
+            return track_step(params, setup, state, images, uniforms=uniforms, generator=generator,
+                              cam_active=cam_active, pose_prediction=pose_prediction,
+                              allow_refresh=allow_refresh, half_res=half_res)
+
+        def make() -> cuda_graph.Captured:
+            cams = torch.empty(params.num_cams, dtype=torch.bool)
+            return cuda_graph.Captured(images.device, inputs | {"cam_active": cams}, chains=2,
+                                       placeholder=_placeholder_gather)
+
+        def replay(entry: cuda_graph.Captured):
+            front_chain, back_chain = entry.chains
+            launch = patches_cuda.extract_patches_pair if live else None
+            with profiling.span("tracker.front"):
+                s = entry.load("inputs", inputs)
+                profiling.annotate(graph=entry.run(front_chain, lambda gather: _front(
+                    params, s["setup"], s["state"], s["images"], s["cam_active"], s["pose_prediction"], half_res,
+                    gather=gather,
+                ), launch))
+            front = front_chain.outputs
+            result = _solve(params, state, front, uniforms, generator)
+            with profiling.span("tracker.back"):
+                r = entry.load("result", result)
+                profiling.annotate(graph=entry.run(back_chain, lambda _: _back(
+                    params, s["setup"], s["state"], front.hot, r, front.init_body_t_world, allow_refresh,
+                ), launch))
+            if not live:  # owns nothing, and keeps no reference to this call's inputs
+                return entry.own(None)
+            done = _complete(params, setup, state, front, result, back_chain.outputs, s["cam_active"],
                              allow_refresh)
-            return entry.own(done, state, result)
+            return entry.own(done)
+
+        pred_key = None if pose_prediction is None else (tuple(pose_prediction.shape), pose_prediction.dtype)
+        key = (images.device, params, tuple(images.shape), images.dtype, half_res, allow_refresh, pred_key)
+        return self.dispatch(key, images.device, eager, make, replay)
 
 
 #: The tracker's tick on the card (the engine's single-device path and the
