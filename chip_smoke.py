@@ -58,8 +58,11 @@ tree it shows which gate an outcome of that phase turned on. With
    the IMU of source 0, over a 240-tick revisit orbit at 1 rad/s with black
    frames on ticks 60-73 (session 1; keyframe spacing and loop candidates
    changed for this orbit, see FULL_PARAMS), and checks tracking, loop closure,
-   BA, the gravity estimate and the map-lifted ATE; times one BA solve,
-   one loop lookup, one verification and one pose-graph solve; then saves
+   BA, the gravity estimate and the map-lifted ATE; times one BA solve
+   (eager, and graphed as the engine runs it, each with its launches and
+   copies counted; the graphed one may make at most
+   BA_GRAPHED_MAX_LAUNCHES), one loop lookup, one verification and one
+   pose-graph solve; then saves
    the map, and a fresh engine on a rig whose clocks start 1 s later loads
    it, relocalizes (through the FAST and gather kernels) and tracks 10
    ticks in its frame (session 2).
@@ -388,6 +391,9 @@ MEASURE_KEYPOINTS = (512, 256)
 MEASURE_ABLATE_RES = "640x400"
 MEASURE_RENDER_FRAMES = 2
 MIN_RENDER_U8_EQUAL = 0.999
+# Phase 5: the graphed BA solve launches one graph; the bound leaves room
+# for its copies in and out where a copy launches a kernel.
+BA_GRAPHED_MAX_LAUNCHES = 60
 # --tick-launches: ticks under the profiler, then unprofiled ticks.
 PROFILE_TICKS = 28  # the slice refreshes about every 13th tick: two keyframes
 TIMED_TICKS = 30
@@ -1273,10 +1279,14 @@ def run_full_engine(dev, inputs: dict, label: str = "engine", stage_solves: bool
 
 
 def _stage_solves(dev, engine, label: str, num_cams: int) -> dict:
-    """Synchronized times of one solve of each backend stage, on the final state."""
+    """Synchronized times of one solve of each backend stage, on the final
+    state; the BA window's solve both eager (on the window moved to the
+    card) and graphed (from the engine's pinned window), each with its
+    runtime launch and copy calls."""
     from thor_slam_tpu_torch.engine import ba, loop, posegraph
 
     built = engine._ba.build_problem({})
+    problem = ba.BAProblem(*(t.to(dev) for t in built[0])) if built else None
     lb = engine._loop
     q = lb.db[-1]
     q_desc = torch.from_numpy(np.ascontiguousarray(q["desc"][0]).view(np.int32)).to(dev)
@@ -1288,7 +1298,9 @@ def _stage_solves(dev, engine, label: str, num_cams: int) -> dict:
     obs_norm = lb._obs_norm(q["obs_px"][0])
     graph, _ = lb.build_graph(0, len(lb.db) - 1, np.linalg.inv(lb.db[0]["world_t_body"]) @ q["world_t_body"])
     stage_ms = dict(
-        bundle_adjust=sync_ms(dev, lambda: ba.bundle_adjust(built[0], huber_delta=0.004)) if built else None,
+        bundle_adjust=sync_ms(dev, lambda: ba.bundle_adjust(problem, huber_delta=0.004)) if built else None,
+        bundle_adjust_graphed=sync_ms(dev, lambda: ba.bundle_adjust_graphed(built[0], huber_delta=0.004))
+        if built else None,
         find_candidate=sync_ms(dev, lambda: loop.find_candidate(q_desc, q_valid, lb._dev_desc, lb._dev_valid, mask)),
         verify_candidate=sync_ms(dev, lambda: lb._verify(cand_e, cam, obs_norm, q_desc, q_valid, 0)),
         posegraph=sync_ms(dev, lambda: posegraph.optimize(graph)),
@@ -1298,7 +1310,29 @@ def _stage_solves(dev, engine, label: str, num_cams: int) -> dict:
         + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not measured" for k, v in stage_ms.items())
         + f" (DB {len(lb.db)} keyframes x {num_cams} cameras, pose graph {graph.poses.shape[0]} nodes)"
     )
+    if built:
+        calls = dict(bundle_adjust=_runtime_calls(dev, lambda: ba.bundle_adjust(problem, huber_delta=0.004)),
+                     bundle_adjust_graphed=_runtime_calls(
+                         dev, lambda: ba.bundle_adjust_graphed(built[0], huber_delta=0.004)))
+        print(f"{label}: one BA solve's runtime calls {json.dumps(calls)}")
+        if calls["bundle_adjust_graphed"]["launches"] > BA_GRAPHED_MAX_LAUNCHES:
+            raise AssertionError(f"the graphed BA solve made {calls['bundle_adjust_graphed']['launches']} launches")
     return stage_ms
+
+
+def _runtime_calls(dev, fn) -> dict:
+    """Runtime launch and copy calls of one ``fn()`` under torch.profiler,
+    after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync(dev)
+    host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    return dict(launches=sum(n in LAUNCH_CALLS for n in host), copies=sum(n in _COPY_CALLS for n in host))
 
 
 def _relocalize_session(dev, engine, inputs: dict, out: dict, label: str, overrides, config, engine_args) -> dict:

@@ -10,7 +10,7 @@
 * Through the engine (synchronous, pipelined at depth 1 and 6): one
   ``engine.dispatch`` per call, every dispatched tick fetched and finalized
   once, one ``tracker.keyframe`` per keyframe tick, BA spans with their skip
-  reasons; and the engine's outputs are bit for bit those of an untraced run.
+  reasons and how the solve ran; and the engine's outputs are bit for bit those of an untraced run.
 
 This file imports no JAX: on a card, ``python -m pytest
 tests/test_torch_tracing.py --noconftest -m cuda`` runs the card's case.
@@ -276,6 +276,17 @@ def test_engine_spans(frames, tracer, mode):
     loop = [s for s in spans if s.name == "backend.loop"]
     assert loop and {s.tick for s in loop} <= keyframes and all(s.attrs["stage"] == "find" for s in loop)
     assert tracer.dropped() == 0
+
+
+def test_ba_span_says_how_it_solved(frames, tracer):
+    """A ``backend.ba`` span whose solver ran carries ``graph``
+    (``"eager"``: CPU tensors take the eager solve); one that stopped
+    before the solve carries none."""
+    _run(frames, pipelined=True, pipeline_depth=1)
+    ba = [s for s in tracer.spans() if s.name == "backend.ba"]
+    assert any(s.attrs["solved"] for s in ba)
+    for s in ba:
+        assert s.attrs.get("graph") == ("eager" if s.attrs["solved"] else None), s.attrs
 
 
 def test_tracker_segment_spans(frames, tracer):

@@ -7,6 +7,11 @@ are inverted in one batch, the Schur complement is a set of einsums over
 (K, C, L), and the reduced camera system is one dense (6K, 6K) solve.
 Pose 0 is the gauge anchor. Everything runs in float32 with TF32 off
 (:func:`thor_slam_tpu_torch.utils.platform.pin_precision`).
+
+On the card the engine's solve is :data:`bundle_adjust_graphed`: the same
+function captured once per window shape in a CUDA graph and replayed, its
+result packed into one tensor (:func:`pack`), so that its ~1,400 small
+kernels cost one launch of host time and one readback.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from thor_slam_tpu_torch.ops import lie
+from thor_slam_tpu_torch.utils import cuda_graph, profiling
 
 
 class BAProblem(NamedTuple):
@@ -126,7 +132,7 @@ def bundle_adjust(
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye_k = torch.eye(k, dtype=dt, device=dev)[:, :, None, None]
     free = pb.pose_mask.clone()
-    free[0] = 0.0  # gauge
+    free[0].fill_(0.0)  # gauge; a kernel, where `free[0] = 0.0` copies from the host (capture refuses it)
     sel = (free[:, None] * free[None, :])[:, :, None, None]
     pinned = eye_k * ((1.0 - free)[:, None, None, None] * eye6)
     lm_mask = pb.lm_mask[:, None]
@@ -181,3 +187,60 @@ def bundle_adjust(
         initial_rms=initial_rms,
         final_rms=torch.where(ok, final_rms, initial_rms),
     )
+
+
+def pack(result: BAResult) -> torch.Tensor:
+    """``result`` as one flat tensor: the K poses, the L landmarks, then
+    the initial and final rms."""
+    return torch.cat([result.body_t_world.reshape(-1), result.landmarks_w.reshape(-1),
+                      torch.stack([result.initial_rms, result.final_rms])])
+
+
+def unpack(packed: torch.Tensor, k: int, l_cap: int) -> BAResult:
+    """:func:`pack`'s result as a :class:`BAResult` of views of it."""
+    poses, landmarks, rms = packed.split([16 * k, 3 * l_cap, 2])
+    return BAResult(poses.view(k, 4, 4), landmarks.view(l_cap, 3), rms[0], rms[1])
+
+
+class GraphedBundleAdjust(cuda_graph.GraphCache):
+    """:func:`bundle_adjust` replayed from CUDA graphs
+    (:mod:`thor_slam_tpu_torch.utils.cuda_graph`), one graph per key.
+
+    Called as :func:`bundle_adjust` is; returns its result packed
+    (:func:`pack`) in the graph and cloned out of it. The device is that of
+    ``problem.cam_rot`` (the bound constants); the other fields may be
+    pinned host tensors, copied in without a wait. The key is device, K,
+    2C, L, ``iters``, ``huber_delta``, ``damping``, ``landmark_damping`` and
+    dtype. The open span gets ``graph``: ``"capture"``, ``"replay"`` or
+    ``"eager"``.
+    """
+
+    def __call__(
+        self,
+        problem: BAProblem,
+        iters: int = 5,
+        huber_delta: float = 0.01,
+        damping: float = 1e-4,
+        landmark_damping: float = 1e-3,
+    ) -> torch.Tensor:
+        dev = problem.cam_rot.device
+        solve = dict(iters=iters, huber_delta=huber_delta, damping=damping, landmark_damping=landmark_damping)
+
+        def eager() -> torch.Tensor:
+            profiling.annotate(graph="eager")
+            return pack(bundle_adjust(problem, **solve))
+
+        def replay(entry: cuda_graph.Captured) -> torch.Tensor:
+            static = entry.load("inputs", problem)
+            chain = entry.chains[0]
+            profiling.annotate(graph=entry.run(chain, lambda _: pack(bundle_adjust(static, **solve))))
+            return entry.own(chain.outputs)
+
+        k, c2, l_cap, _ = problem.obs.shape
+        key = (dev, k, c2, l_cap, iters, huber_delta, damping, landmark_damping, problem.landmarks_w.dtype)
+        return self.dispatch(key, dev, eager, lambda: cuda_graph.Captured(dev, problem), replay)
+
+
+#: The engine's window solve (``TrackBA``); tests and ``chip_smoke.py`` also
+#: call :func:`bundle_adjust` eagerly.
+bundle_adjust_graphed = GraphedBundleAdjust()

@@ -6,7 +6,10 @@ engine.tracker.pack_ba_obs`): KLT positions joined across ticks by the
 persistent landmark id, so keyframe-boundary slot changes never poison a
 window. Only finalized-tick data is read; a correction lands on the live
 tracker state as one left-multiplied pose delta plus a by-id landmark
-update (:func:`apply_correction`).
+update (:func:`apply_correction`). On a card the window reaches the
+solve through pinned host buffers, the solve replays a captured CUDA graph
+(:data:`~thor_slam_tpu_torch.engine.ba.bundle_adjust_graphed`) and its
+result comes back in one copy behind one event.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from thor_slam_tpu_torch.engine import tracker as trk
 from thor_slam_tpu_torch.parallel.mesh import ShardedTrackerState
 
 _ID_PAD = np.iinfo(np.int32).max  # sorts after every real id
+#: The window's fields that :meth:`TrackBA.build_problem` fills on the host.
+_WINDOW = ("body_t_world", "landmarks_w", "obs", "obs_mask", "pose_mask", "lm_mask")
 
 
 def apply_correction(
@@ -86,6 +91,10 @@ class TrackBA:
         self._cam_weight: np.ndarray | None = None
         self._num_cams = 0
         self._device: torch.device | None = None
+        #: Host buffers of the bound shape (pinned on a card) and their numpy views.
+        self._host: dict[str, torch.Tensor] = {}
+        self._np: dict[str, np.ndarray] = {}
+        self._fetched: torch.cuda.Event | None = None
         #: What the last :meth:`run` learned: ``solved`` (the solver ran),
         #: ``rms`` (before, after) and ``correction_m`` (the last pose's move),
         #: None where it stopped before; the engine's ``backend.ba`` span
@@ -106,21 +115,45 @@ class TrackBA:
         self._device = setup.cam_r_body.device
         self._cam_rot = torch.cat([setup.cam_r_body, setup.cam_r_body_right]).float()
         self._cam_trans = torch.cat([setup.cam_t_body, setup.cam_t_body_right]).float()
+        k, c2, l_cap = self.window, 2 * num_cams, self.landmarks
+        shapes = dict(
+            body_t_world=(k, 4, 4), landmarks_w=(l_cap, 3), obs=(k, c2, l_cap, 2), obs_mask=(k, c2, l_cap),
+            pose_mask=(k,), lm_mask=(l_cap,), result=(16 * k + 3 * l_cap + 2,), t_corr=(4, 4),
+        )
+        pin = self._device.type == "cuda"
+        self._host = {name: torch.empty(shape, pin_memory=pin) for name, shape in shapes.items()}
+        self._host["upd_ids"] = torch.empty(l_cap, dtype=torch.int32, pin_memory=pin)
+        self._host["upd_ok"] = torch.empty(l_cap, dtype=torch.bool, pin_memory=pin)
+        self._np = {name: t.numpy() for name, t in self._host.items()}
+        self._fetched = torch.cuda.Event() if pin else None
 
     def warm(self) -> None:
-        """Solve one empty window of the bound shape (the first dense
-        solve on a device initializes its solver library)."""
-        k, c2, l_cap = self.window, self._cam_rot.shape[0], self.landmarks
-        f32 = dict(dtype=torch.float32, device=self._device)
-        ba.bundle_adjust(
-            ba.BAProblem(
-                body_t_world=torch.eye(4, **f32).expand(k, 4, 4), landmarks_w=torch.zeros((l_cap, 3), **f32),
-                obs=torch.zeros((k, c2, l_cap, 2), **f32), obs_mask=torch.zeros((k, c2, l_cap), **f32),
-                cam_rot=self._cam_rot, cam_trans=self._cam_trans, pose_mask=torch.zeros(k, **f32),
-                lm_mask=torch.zeros(l_cap, **f32),
-            ),
-            iters=1,
-        )
+        """Solve one empty window of the bound shape as :meth:`run` solves
+        it: on a card that captures the solve's graph (and initializes the
+        dense solver) here, not in a window's tick."""
+        h = self._np
+        for name in _WINDOW:
+            h[name].fill(0.0)
+        h["body_t_world"][:] = np.eye(4, dtype=np.float32)
+        self._solve(self._problem())
+
+    def _problem(self) -> ba.BAProblem:
+        """The window held in the host buffers, with the bound constants."""
+        return ba.BAProblem(cam_rot=self._cam_rot, cam_trans=self._cam_trans, **{k: self._host[k] for k in _WINDOW})
+
+    def _solve(self, problem: ba.BAProblem) -> tuple[ba.BAResult, torch.Tensor]:
+        """The window's solve and its one readback: the result on the host
+        (the ``result`` buffer's views on a card) and the refined landmarks
+        on the solve's device."""
+        packed = ba.bundle_adjust_graphed(problem, huber_delta=0.004)
+        host = packed
+        if self._fetched is not None:
+            host = self._host["result"]
+            host.copy_(packed, non_blocking=True)
+            self._fetched.record(torch.cuda.current_stream(self._device))
+            self._fetched.synchronize()
+        k, l_cap = self.window, self.landmarks
+        return ba.unpack(host, k, l_cap), ba.unpack(packed, k, l_cap).landmarks_w
 
     def clear(self) -> None:
         self._ticks.clear()
@@ -139,8 +172,9 @@ class TrackBA:
         self._ticks.append(rec)
 
     def build_problem(self, diagnostics: dict):
-        """Assemble the window's fixed-shape problem (on the host, then
-        copied to the bound device).
+        """Assemble the window's fixed-shape problem in the host buffers:
+        the window's fields are host tensors (pinned on a card; the next
+        call overwrites them), the camera constants the bound device's.
 
         Returns ``(problem, chosen ids, initial landmarks)`` or None (the
         reason lands in ``diagnostics["ba_skip"]``).
@@ -176,11 +210,12 @@ class TrackBA:
         chosen = np.sort(np.asarray(multi[:l_cap], np.int64))  # sorted: searchsorted joins
         l_n = len(chosen)
 
-        obs = np.zeros((k_win, 2 * c, l_cap, 2), np.float32)
-        mask = np.zeros((k_win, 2 * c, l_cap), np.float32)
-        poses = np.tile(np.eye(4, dtype=np.float32), (k_win, 1, 1))
-        pose_mask = np.zeros(k_win, np.float32)
-        lms = np.zeros((l_cap, 3), np.float32)
+        h = self._np
+        obs, mask, poses, pose_mask, lms = (h[k] for k in ("obs", "obs_mask", "body_t_world", "pose_mask",
+                                                           "landmarks_w"))
+        for a in (obs, mask, pose_mask, lms):
+            a.fill(0.0)
+        poses[:] = np.eye(4, dtype=np.float32)
         for ki, t in enumerate(ticks):
             poses[ki] = t["body_t_world"]
             pose_mask[ki] = 1.0
@@ -210,16 +245,8 @@ class TrackBA:
         # monocular-only depth slides along its ray and biases the scale.
         # Fixed landmarks still constrain the poses.
         has_stereo = mask[:, c:, :].sum(axis=(0, 1)) > 0.0
-        lm_mask = lm_present * has_stereo.astype(np.float32)
-        arrays = dict(
-            body_t_world=poses, landmarks_w=lms, obs=obs, obs_mask=mask,
-            pose_mask=pose_mask, lm_mask=lm_mask,
-        )
-        problem = ba.BAProblem(
-            cam_rot=self._cam_rot, cam_trans=self._cam_trans,
-            **{k: torch.from_numpy(v).to(self._device) for k, v in arrays.items()},
-        )
-        return problem, chosen, lms
+        h["lm_mask"][:] = lm_present * has_stereo.astype(np.float32)
+        return self._problem(), chosen, lms
 
     def run(self, world_t_body: np.ndarray, covariance: np.ndarray | None, tracker_state, diagnostics: dict):
         """Optimize the window; push an accepted correction to the tracker.
@@ -242,8 +269,8 @@ class TrackBA:
             return tracker_state, world_t_body, None
         problem, chosen, lms = built
         dev = self._device
-        result = ba.bundle_adjust(problem, huber_delta=0.004)
-        initial_rms, final_rms = torch.stack([result.initial_rms, result.final_rms]).tolist()
+        result, refined_lms_dev = self._solve(problem)
+        initial_rms, final_rms = float(result.initial_rms), float(result.final_rms)
         self.last_solve.update(solved=True, rms=(initial_rms, final_rms))
         # Only a meaningful improvement: near-neutral refinements are noise
         # reshuffling whose pose corrections compound as drift of their own.
@@ -251,8 +278,8 @@ class TrackBA:
             diagnostics["ba_skip"] = f"rms {initial_rms:.5f}->{final_rms:.5f}"
             return tracker_state, world_t_body, None
 
-        refined_poses = result.body_t_world.double().cpu().numpy()
-        refined_lms = result.landmarks_w.cpu().numpy()
+        refined_poses = result.body_t_world.double().numpy()
+        refined_lms = result.landmarks_w.numpy()
         ticks = list(self._ticks)[-self.window :]
         new_world = np.linalg.inv(refined_poses[len(ticks) - 1])
         corr = np.linalg.norm(new_world[:3, 3] - world_t_body[:3, 3])
@@ -268,20 +295,17 @@ class TrackBA:
 
         # A landmark the solver moved implausibly far disagrees with the
         # window (wrong association, degenerate depth): keep its position.
-        l_cap, l_n = self.landmarks, len(chosen)
+        l_n = len(chosen)
         lm_ok = np.linalg.norm(refined_lms - lms, axis=-1) <= self.max_correction_m
         t_corr = new_world @ np.linalg.inv(np.asarray(world_t_body, np.float64))
-        upd_ids = np.full(l_cap, _ID_PAD, np.int32)
-        upd_ids[:l_n] = chosen
-        upd_ok = np.zeros(l_cap, bool)
-        upd_ok[:l_n] = lm_ok[:l_n]
-        tracker_state = apply_correction(
-            tracker_state,
-            torch.as_tensor(t_corr, dtype=torch.float32, device=dev),
-            torch.from_numpy(upd_ids).to(dev),
-            result.landmarks_w,
-            torch.from_numpy(upd_ok).to(dev),
-        )
+        h = self._np
+        h["t_corr"][:] = t_corr
+        h["upd_ids"].fill(_ID_PAD)
+        h["upd_ids"][:l_n] = chosen
+        h["upd_ok"].fill(False)
+        h["upd_ok"][:l_n] = lm_ok[:l_n]
+        t_corr_d, upd_ids, upd_ok = (self._host[k].to(dev, non_blocking=True) for k in ("t_corr", "upd_ids", "upd_ok"))
+        tracker_state = apply_correction(tracker_state, t_corr_d, upd_ids, refined_lms_dev, upd_ok)
         for ki, t in enumerate(ticks):  # the next solve starts warm
             t["body_t_world"] = refined_poses[ki]
         diagnostics["ba_rms"] = (initial_rms, final_rms)
