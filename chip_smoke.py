@@ -14,7 +14,12 @@ into a ``git archive`` of a parent it gives both trees' tables in one
 call. With ``--engine-only`` it builds the kernels and runs phase 5
 alone, printing every BA solve's outcome by tick: copied into a parent's
 tree it shows which gate an outcome of that phase turned on. With
-``--bench-only`` it builds the kernels and runs phase 13 alone. It
+``--bench-only`` it builds the kernels and runs phase 13 alone. With
+``--patrol [seed ...]`` it builds the kernels and records the benchmark's
+patrol cell (``oak4-640x400-patrol.orbit-loop``) once a seed through the
+benchmark's own harness, untraced, with the bfloat16 control beside it,
+checks every pose-graph solve the run made against the plain reference,
+and prints a JSON line a seed (``run_patrol``); no result line. It
 
 0. requires a CUDA device, prints the card's name and power limit and pins
    full-f32 precision;
@@ -3007,6 +3012,150 @@ def run_bench_phase(dev, t_start: float) -> dict:
     return launches
 
 
+# Patrol phase (--patrol): the benchmark's patrol cell, one run a seed
+# through benchmark.run.run_cell, with a recorder on the loop backend and
+# the engine. Every closure's graph is solved again on the card by the
+# plain reference in float64, and in bfloat16 as the control, which must
+# lie outside the tolerances the program's float32 solve keeps to.
+PATROL_CELL = "oak4-640x400-patrol.orbit-loop"
+PATROL_SECONDS = 51.0
+PATROL_SEEDS = (3210000101, 3210000102, 3210000103)
+
+
+@contextlib.contextmanager
+def closures_recorded():
+    """Every loop closure a ``LoopBackend`` applies inside the block, in the
+    yielded list: ``graph`` (the solved ``PoseGraph``'s fields, host arrays),
+    ``poses`` (its padded solve), ``t_corr``, ``kk``, ``ci``, ``qi``,
+    ``query_ts`` (the query keyframe's time) and ``at`` (host clock). Wraps
+    the loop backend module's ``posegraph.optimize`` and ``LoopBackend.poll``."""
+    from thor_slam_tpu_torch.engine.backends import loop_closure
+
+    out, last = [], []
+    optimize, poll = loop_closure.posegraph.optimize, loop_closure.LoopBackend.poll
+
+    def recorded_optimize(graph, *args, **kwargs):
+        poses, rms = optimize(graph, *args, **kwargs)
+        last[:] = [({k: v.cpu().numpy() for k, v in graph._asdict().items()}, poses.cpu().numpy())]
+        return poses, rms
+
+    def recorded_poll(self, *args, **kwargs):
+        res = poll(self, *args, **kwargs)
+        if res is not None:
+            t_corr, _, kk, info = res
+            graph, poses = last[0]
+            out.append(dict(graph=graph, poses=poses, t_corr=t_corr, kk=kk, ci=info["ci"], qi=info["qi"],
+                            query_ts=self.db[info["qi"]]["ts"], at=time.perf_counter()))
+        return res
+
+    loop_closure.posegraph.optimize, loop_closure.LoopBackend.poll = recorded_optimize, recorded_poll
+    try:
+        yield out
+    finally:
+        loop_closure.posegraph.optimize, loop_closure.LoopBackend.poll = optimize, poll
+
+
+def check_closure(c: dict, dev) -> dict:
+    """One recorded closure against the plain reference: the program's
+    solve and the bfloat16 control's, each against the float64 solve."""
+    from benchmark.reference import posegraph as plain
+
+    graph = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in c["graph"].items()}
+    t0 = time.perf_counter()
+    ref64, _ = plain.optimize(**graph)
+    ref_s = time.perf_counter() - t0
+    ctrl, _ = plain.optimize(**graph, dtype=torch.bfloat16)
+    trans, rot = plain.pose_differences(c["poses"], ref64)
+    c_trans, c_rot = plain.pose_differences(ctrl, ref64)
+    return dict(nodes=c["kk"], ci=c["ci"], qi=c["qi"], query_ts=round(c["query_ts"], 4), program_m=trans,
+                program_rot=rot, control_m=c_trans, control_rot=c_rot, ref_s=round(ref_s, 3),
+                agrees=trans < plain.TRANS_TOL_M and rot < plain.ROT_TOL,
+                control_fails=c_trans > plain.TRANS_TOL_M or c_rot > plain.ROT_TOL)
+
+
+def record_patrol(dev, seed: int, seconds: float = PATROL_SECONDS) -> dict:
+    """One untraced run of the patrol cell with its bfloat16 control: the
+    result, every closure checked against the plain reference and against
+    the truth, and the window's ATE of the odometry and of the map-lifted
+    trajectory (``map_t_odom @ pose``)."""
+    import benchmark.core.driver as driver_mod
+    import benchmark.core.system as system_mod
+    from benchmark.core import spec
+    from benchmark.run import run_cell
+    from thor_slam_tpu_torch.engine.torch_engine import TorchSlamEngine
+
+    bench = spec.load_benchmark()
+    cell = spec.cell(PATROL_CELL, bench)
+    cfg, mix = spec.config(cell["config"], bench), spec.traffic(cell["traffic"])
+    fps = float(mix["fps"])
+    held: dict = {"ticks": []}
+    process, build, driver_cls = TorchSlamEngine.process_frames, system_mod.build, driver_mod.Driver
+
+    def logged_process(self, frame_set):
+        pose = process(self, frame_set)
+        if pose is not None and held["driver"].in_window:
+            held["ticks"].append((int(round(pose.timestamp * fps)), pose.to_4x4_matrix(), self.map_t_odom))
+        return pose
+
+    def logged_build(*args, **kwargs):
+        held["system"] = build(*args, **kwargs)
+        return held["system"]
+
+    class Driver(driver_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            held["driver"] = self
+
+    TorchSlamEngine.process_frames, system_mod.build, driver_mod.Driver = logged_process, logged_build, Driver
+    try:
+        with closures_recorded() as recorded:
+            result = run_cell(cell, cfg, mix, spec.limits(PATROL_CELL), bench, seed, seconds, False, dev,
+                              log=lambda m: print(f"patrol: {m}"), control=torch.bfloat16)
+    finally:
+        TorchSlamEngine.process_frames, system_mod.build, driver_mod.Driver = process, build, driver_cls
+    rig = held["system"].rig
+
+    closures = []
+    for c in recorded:
+        k = int(round(c["query_ts"] * fps))
+        truth = rig.gt_poses([k]).numpy()[0]
+        q_map = c["graph"]["poses"][c["qi"]].astype(np.float64)
+        odo = next((m for kp, m, _ in held["ticks"] if kp == k), None)
+        closures.append(dict(
+            check_closure(c, dev), corr_m=float(np.linalg.norm(c["t_corr"][:3, 3])),
+            truth_corr_m=float(np.linalg.norm(truth[:3, 3] - q_map[:3, 3])),
+            odo_err_m=None if odo is None else float(np.linalg.norm(odo[:3, 3] - truth[:3, 3])),
+            map_err_after_m=float(np.linalg.norm((c["t_corr"] @ q_map)[:3, 3] - truth[:3, 3])),
+        ))
+
+    gt = rig.gt_poses([kp for kp, _, _ in held["ticks"]]).numpy()
+    odo = np.stack([m for _, m, _ in held["ticks"]])
+    world = np.stack([mto @ m for _, m, mto in held["ticks"]])
+    ate = {name: float(np.sqrt(np.mean(np.sum((x[:, :3, 3] - gt[:, :3, 3]) ** 2, -1))) * 100)
+           for name, x in (("odometry", odo), ("world", world))}
+    return dict(
+        seed=seed, correct=result["correct"], control_correct=result["control_correct"], failed=result["failed"],
+        attempted=result["attempted"], metrics={k: v["value"] for k, v in result["metrics"].items()},
+        readings=result["readings"], control_readings=result["control_readings"],
+        memory_peak_bytes=result["device"]["memory_peak_bytes"], render_s=rig.render_s, host_bytes=rig.host_bytes,
+        ate_cm=ate, closures=closures,
+    )
+
+
+def run_patrol(dev, seeds) -> bool:
+    """``--patrol``: :func:`record_patrol` for each seed, a JSON line each;
+    True when every run is correct, its control not, every solve agrees
+    with the plain reference and every control solve lies outside."""
+    ok = True
+    for seed in seeds:
+        out = record_patrol(dev, seed)
+        print(f"patrol: {json.dumps(out)}", flush=True)
+        ok &= out["correct"] and not out["control_correct"] and bool(out["closures"])
+        ok &= all(c["agrees"] and c["control_fails"] for c in out["closures"])
+        torch.cuda.empty_cache()
+    return ok
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3039,6 +3188,10 @@ def main() -> int:
         # Phase 13 alone (see the module docstring): no result line.
         print(f"bench: phase launches {json.dumps(run_bench_phase(dev, t_start))}")
         return 0
+    if "--patrol" in sys.argv[1:]:
+        # The patrol recorder alone (see the module docstring): no result line.
+        seeds = [int(a) for a in sys.argv[sys.argv.index("--patrol") + 1 :] if a.isdigit()] or PATROL_SEEDS
+        return 0 if run_patrol(dev, seeds) else 1
     if "--engine-only" in sys.argv[1:]:
         # The full-engine phase alone (see the module docstring): no result line.
         check_full_engine(run_full_engine(dev, render_full_inputs(), **PR6_MODES))

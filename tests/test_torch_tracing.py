@@ -11,6 +11,9 @@
   ``engine.dispatch`` per call, every dispatched tick fetched and finalized
   once, one ``tracker.keyframe`` per keyframe tick, BA spans with their skip
   reasons and how the solve ran; and the engine's outputs are bit for bit those of an untraced run.
+* Through a revisit orbit with a blackout: each loop-closure stage's outcome on its
+  ``backend.loop`` span, the ``loop.posegraph`` span of each solve, and the tracking state each
+  call left on ``engine.process_frames``.
 
 This file imports no JAX: on a card, ``python -m pytest
 tests/test_torch_tracing.py --noconftest -m cuda`` runs the card's case.
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from thor_slam_tpu_torch.camera.rig import CameraRig
 from thor_slam_tpu_torch.camera.sources.synthetic import (
     OrbitTrajectory,
@@ -374,3 +378,90 @@ def test_tracing_changes_no_output(frames):
         profiling.tracing(False)
         profiling.clear()
     _same(on, off)
+
+
+# ------------------------------------------------- loop closure and state
+
+LOOP_BLACKOUT = range(60, 74)
+
+
+@pytest.fixture(scope="module")
+def loop_spans():
+    """The spans of 170 traced ticks of a revisit orbit with a blackout
+    (the loop end-to-end configuration), with each tick's tracking state
+    and the closures the loop backend applied (``closures_recorded``)."""
+    spec = SyntheticRigSpec(num_sources=2, stereo=True, width=160, height=120, fps=20.0, baseline_m=0.12)
+    sources, rig_ext, _, _ = make_synthetic_rig(spec, world=SyntheticWorld(half_extents=(4.0, 4.0, 2.0)),
+                                                trajectory=OrbitTrajectory(radius=1.5, angular_rate=1.0))
+    engine = TorchSlamEngine(
+        params=dict(max_keypoints=256, keyframe_min_inliers=40, keyframe_max_translation=0.3, keyframe_max_rotation=0.35),
+        enable_ba=False, use_imu=False, light_ticks=False, device="cpu", loop_db_capacity=30, loop_exclude_recent=6,
+        loop_cooldown_kfs=8, loop_min_votes=40, loop_min_inliers=25,
+    )
+    states = []
+    profiling.tracing(False)
+    profiling.clear()
+    profiling.tracing(True)
+    try:
+        with CameraRig(sources, rig_extrinsics=rig_ext) as rig, chip_smoke.closures_recorded() as closures:
+            engine.initialize(rig.calibration, SlamConfig(num_cameras=4, enable_loop_closure=True))
+            for i in range(170):
+                sync = rig.get_synchronized_frames()
+                if i in LOOP_BLACKOUT:
+                    for fs in sync.frame_sets.values():
+                        for f in fs.frames:
+                            f.image = np.zeros_like(f.image)
+                engine.process_frames(sync)
+                states.append(engine.get_tracking_state().name)
+            engine.flush()
+        spans = profiling.spans()
+        assert profiling.dropped() == 0
+    finally:
+        profiling.tracing(False)
+        profiling.clear()
+    engine.shutdown()
+    return spans, states, closures
+
+
+def test_loop_stages_carry_their_outcomes(loop_spans):
+    """``backend.loop``: a find's readback carries its ``votes``, a
+    verification's readback ``accepted`` and ``inliers``, the pose-graph
+    stage the gate's verdict with its discrepancy and noise floor (and,
+    where it applied, the graph's ``nodes``), around one ``loop.posegraph``
+    span of the solve with ``nodes`` and ``edges``; none of them adds a
+    synchronizing call."""
+    spans, _, closures = loop_spans
+    by_index = {s.index: s for s in spans}
+    loop = [s for s in spans if s.name == "backend.loop"]
+    finds = [s for s in loop if s.attrs["stage"] == "find" and "votes" in s.attrs]
+    verifies = [s for s in loop if s.attrs["stage"] == "verify"]
+    graphs = [s for s in loop if s.attrs["stage"] == "posegraph"]
+    assert finds and all(isinstance(s.attrs["votes"], int) for s in finds)
+    assert verifies and all(isinstance(s.attrs["accepted"], bool) and isinstance(s.attrs["inliers"], int)
+                            for s in verifies)
+    assert len(graphs) == sum(s.attrs["accepted"] for s in verifies) >= 1
+    for s in graphs:
+        assert s.attrs["gate"] in ("skip", "apply") and s.attrs["disc_m"] >= 0 and s.attrs["floor_m"] > 0
+        assert (s.attrs["gate"] == "apply") == (s.attrs["disc_m"] >= s.attrs["floor_m"])
+        assert s.attrs["closed"] == (s.attrs["gate"] == "apply") == ("nodes" in s.attrs)
+    solves = [s for s in spans if s.name == "loop.posegraph"]
+    applied = [s for s in graphs if s.attrs["gate"] == "apply"]
+    assert len(solves) == len(applied) >= 1
+    for s in solves:
+        parent = by_index[s.parent]
+        assert parent.name == "backend.loop" and parent.attrs["stage"] == "posegraph"
+        assert s.attrs == {"nodes": parent.attrs["nodes"], "edges": parent.attrs["nodes"]}
+        assert parent.t0 <= s.t0 and s.t1 <= parent.t1 and s.tick == parent.tick
+    assert [s.attrs["nodes"] for s in solves] == [c["kk"] for c in closures]
+    assert all(s.syncs == 0 for s in loop + solves)
+
+
+def test_each_call_says_the_state_it_left(loop_spans):
+    """``engine.process_frames`` carries ``state``: the tracking state the
+    call left; the blackout's ticks leave tracking and it comes back."""
+    spans, states, _ = loop_spans
+    roots = [s for s in spans if s.name == "engine.process_frames"]
+    assert [s.attrs["state"] for s in roots] == states
+    assert states[LOOP_BLACKOUT.start - 1] == "TRACKING" and states[-1] == "TRACKING"
+    lost = [i for i, s in enumerate(states) if s in ("LOST", "RELOCALIZING")]
+    assert lost and LOOP_BLACKOUT.start <= lost[0] and lost[-1] < LOOP_BLACKOUT.stop + 10

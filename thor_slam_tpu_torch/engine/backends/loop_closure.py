@@ -103,9 +103,9 @@ class LoopBackend:
         self._body_t_cam = setup.body_t_cam.double().cpu().numpy()
 
     def warm(self) -> None:
-        """Run one pose-graph solve on a small chain: the first
-        ``torch.func`` transform of a process pays a one-time set-up of
-        seconds, which belongs in the engine's initialize, not in a tick."""
+        """Run one pose-graph solve on a small chain: the first solve of a
+        process pays the linear solver's one-time set-up, which belongs in
+        the engine's initialize, not in a tick."""
         chain = np.tile(np.eye(4, dtype=np.float32), (8, 1, 1))
         chain[:, 0, 3] = np.arange(8, dtype=np.float32)
         arrays = dict(zip(("edge_i", "edge_j", "edge_t", "edge_weight"), posegraph.sequential_graph(chain, capacity_edges=8)))
@@ -293,6 +293,7 @@ class LoopBackend:
                 ver = loop.LoopVerification(*(t.detach().cpu().numpy() for t in p["ver"]))
                 self._pending = None
                 accepted = bool(ver.accepted)
+                profiling.annotate(accepted=accepted, inliers=int(ver.num_inliers))
             if not accepted:
                 return None
             with profiling.span("backend.loop", tick=p["tick"], stage="posegraph"):
@@ -305,6 +306,7 @@ class LoopBackend:
         """The find's readback; on enough votes, the verification's launch
         (``p`` moves to ``"verify"``), else the lookup ends."""
         votes, row = torch.stack([p["cand"].votes, p["cand"].keyframe]).tolist()
+        profiling.annotate(votes=int(votes))
         if votes < self.min_votes:
             self._pending = None
             return
@@ -337,7 +339,9 @@ class LoopBackend:
         disc = np.linalg.norm(loop_pose_est[:3, 3] - world_t_body[:3, 3])
         sigma_t = float(np.sqrt(max(np.trace(np.asarray(ver.covariance, np.float64)[:3, :3]), 0.0)))
         noise_floor = max(self.min_correction_m, self.noise_gate_sigma * sigma_t)
-        if disc < noise_floor:
+        gate = "skip" if disc < noise_floor else "apply"
+        profiling.annotate(gate=gate, disc_m=float(disc), floor_m=float(noise_floor))
+        if gate == "skip":
             self._cooldown = self.cooldown_kfs
             if diagnostics is not None:
                 diagnostics["loop_skip"] = f"disc {disc:.4f} m < floor {noise_floor:.4f} m (sigma {sigma_t:.4f})"
@@ -350,8 +354,11 @@ class LoopBackend:
 
         graph, poses = self.build_graph(ci, qi, np.linalg.inv(cand_e["world_t_body"]) @ loop_pose_est)
         kk = poses.shape[0]
-        opt_poses, _ = posegraph.optimize(graph)
-        opt_poses = opt_poses.double().cpu().numpy()[:kk]
+        profiling.annotate(nodes=kk)
+        # Live edges: the chain's kk - 1 and the loop's.
+        with profiling.span("loop.posegraph", nodes=kk, edges=kk):
+            opt_poses, _ = posegraph.optimize(graph)
+            opt_poses = opt_poses.double().cpu().numpy()[:kk]
 
         # Map side only: the live tracker state (odom) is left alone.
         t_corr = opt_poses[-1] @ np.linalg.inv(poses[-1].astype(np.float64))

@@ -4,9 +4,10 @@ Port of :mod:`thor_slam_tpu.engine.posegraph`. Up to K nodes and E edges
 as dense masked tensors; the residual of edge (i, j) is
 ``log(inv(T_meas) inv(X_i) X_j)``. The reference differentiates the whole
 (E*6,) residual against all K*6 tangents with one ``jax.jacfwd``; an edge
-depends only on its two nodes, so here ``torch.func.jacfwd`` runs per edge
-over its 12 tangents (vmapped over edges) and the 6x12 blocks are
-scattered into the same dense (E*6, K*6) Jacobian.
+depends only on its two nodes, so here each edge's 6x12 block is written
+in closed form (:func:`_edge_jacobians`) and scattered into the same dense
+(E*6, K*6) Jacobian: ``torch.func.jacfwd`` of :func:`_edge_logs` at
+perturbed nodes gives the same blocks, at several times the host time.
 """
 
 from __future__ import annotations
@@ -58,30 +59,57 @@ def sequential_graph(poses, rel_noise_weight: float = 1.0, capacity_edges: int |
     return edge_i, edge_j, edge_t, w
 
 
-def _edge_residual(d_i, d_j, x_i, x_j, t_meas, w):
-    """(6,) weighted residual of one edge at node tangent offsets d_i, d_j."""
-    xi = lie.se3_exp(d_i) @ x_i
-    xj = lie.se3_exp(d_j) @ x_j
-    err = lie.se3_inverse(t_meas) @ (lie.se3_inverse(xi) @ xj)
-    return lie.se3_log(err) * w
+def _edge_logs(x_i, x_j, t_meas):
+    """(E, 6) unweighted residuals ``log(inv(T_meas) inv(X_i) X_j)`` and
+    the (E, 4, 4) errors they are the logs of."""
+    e = lie.se3_inverse(t_meas) @ (lie.se3_inverse(x_i) @ x_j)
+    return lie.se3_log(e), e
 
 
-def _edge_residual_aux(d_i, d_j, x_i, x_j, t_meas, w):
-    r = _edge_residual(d_i, d_j, x_i, x_j, t_meas, w)
-    return r, r
+def _edge_jacobians(x_i, x_j, t_meas, w):
+    """(E, 6, 6) weighted Jacobian of each edge's residual against its
+    target node's tangent, and the (E, 6) residuals.
 
-
-_edge_jacobians = torch.func.vmap(
-    torch.func.jacfwd(_edge_residual_aux, argnums=(0, 1), has_aux=True)
-)
+    With ``E = inv(T_meas) inv(X_i) X_j`` and left perturbations
+    ``X <- exp(d) X``, to first order ``E <- E exp(Ad(inv(X_j)) (d_j -
+    d_i))``, so ``dr/dd_j = w Jr^-1(log E) Ad(inv(X_j))`` and ``dr/dd_i``
+    is its negative. ``Jr^-1`` of SE(3) over [rho, phi] is ``[[A, M A],
+    [0, A]]``: ``A = I + K/2 + c K^2`` (K = hat(phi), c(t) = (1 - (t/2)
+    cot(t/2)) / t^2, the coefficient of :func:`lie.se3_log`) is SO(3)'s,
+    and ``M`` is the derivative of the log's ``rho = (I - K/2 + c K^2) t``
+    against phi. Taken in float64 from the dtype's poses, with the series
+    of c and c'/t below t = 0.1.
+    """
+    xi, e = _edge_logs(x_i, x_j, t_meas)
+    r = xi * w[:, None]
+    phi, t = xi[:, 3:].double(), e[:, :3, 3].double()
+    t2 = (phi * phi).sum(-1)[:, None, None]
+    small = t2 < 1e-2
+    th2 = torch.where(small, torch.ones_like(t2), t2)
+    th = torch.sqrt(th2)
+    cot = torch.cos(0.5 * th) / torch.sin(0.5 * th)
+    c = torch.where(small, 1 / 12 + t2 / 720 + t2 * t2 / 30240, (1.0 - 0.5 * th * cot) / th2)
+    dc = torch.where(small, 1 / 360 + t2 / 7560 + t2 * t2 / 201600,
+                     -2.0 / (th2 * th2) + cot / (2.0 * th2 * th) + 1.0 / (4.0 * th2 * torch.sin(0.5 * th) ** 2))
+    k = lie.hat(phi)
+    eye = torch.eye(3, dtype=k.dtype, device=k.device)
+    a = eye + 0.5 * k + c * (k @ k)
+    pt, tc, pc = phi[:, :, None], t[:, :, None], (k @ (k @ t[:, :, None]))
+    m = 0.5 * lie.hat(t) + c * ((pt.transpose(1, 2) @ tc) * eye + pt @ tc.transpose(1, 2) - 2.0 * tc @ pt.transpose(1, 2))
+    m = m + dc * (pc @ pt.transpose(1, 2))
+    zero = torch.zeros_like(a)
+    jr_inv = torch.cat([torch.cat([a, m @ a], -1), torch.cat([zero, a], -1)], -2)
+    rt = x_j[:, :3, :3].double().transpose(1, 2)
+    ad = torch.cat([torch.cat([rt, lie.hat(-(rt @ x_j[:, :3, 3:].double())[..., 0]) @ rt], -1),
+                    torch.cat([zero, rt], -1)], -2)
+    return (w[:, None, None].double() * (jr_inv @ ad)).to(x_j.dtype), r
 
 
 def residuals(graph: PoseGraph, poses: torch.Tensor | None = None) -> torch.Tensor:
     """(E, 6) weighted edge residuals at ``poses`` (the graph's own by default)."""
     poses = graph.poses if poses is None else poses
-    zero = torch.zeros((graph.edge_i.shape[0], 6), dtype=poses.dtype, device=poses.device)
     ei, ej = graph.edge_i.long(), graph.edge_j.long()
-    return torch.func.vmap(_edge_residual)(zero, zero, poses[ei], poses[ej], graph.edge_t, graph.edge_weight)
+    return _edge_logs(poses[ei], poses[ej], graph.edge_t)[0] * graph.edge_weight[:, None]
 
 
 def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
@@ -104,13 +132,12 @@ def optimize(graph: PoseGraph, iters: int = 10, damping: float = 1e-5) -> tuple[
     cols_i = (ei[:, None] * 6 + cols)[:, None, :].expand(e, 6, 6)
     cols_j = (ej[:, None] * 6 + cols)[:, None, :].expand(e, 6, 6)
     rows = rows.expand(e, 6, 6)
-    zero = torch.zeros((e, 6), dtype=dt, device=dev)
 
     poses = g.poses
     for _ in range(iters):
-        (j_i, j_j), r = _edge_jacobians(zero, zero, poses[ei], poses[ej], g.edge_t, g.edge_weight)
+        j_j, r = _edge_jacobians(poses[ei], poses[ej], g.edge_t, g.edge_weight)
         jac = torch.zeros((e * 6, k * 6), dtype=dt, device=dev)
-        jac.index_put_((rows, cols_i), j_i, accumulate=True)
+        jac.index_put_((rows, cols_i), -j_j, accumulate=True)
         jac.index_put_((rows, cols_j), j_j, accumulate=True)
         jac = jac * sel[None, :]
         h = jac.T @ jac + h_fixed

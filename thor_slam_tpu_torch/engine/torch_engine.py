@@ -500,6 +500,7 @@ class TorchSlamEngine(SlamEngine):
             if t_in is not None:
                 t_out = time.perf_counter()
                 self._light_ctl.on_tick(t_out - t_in, frame_set.timestamp, t_out)
+            profiling.annotate(state=self._state_enum.name)
             return pose
 
     def _stage(self, frame_set: SynchronizedFrameSet, light: bool, half: bool, alloc=None) -> np.ndarray:
